@@ -1,0 +1,120 @@
+"""Batched dense Cholesky + triangular inverse in plain PyTorch.
+
+Counterpart of ``parsy_bench_tpu/ops/dense.py`` with the same algorithm:
+a flat right-looking Cholesky in 16-wide panels, an unrolled rank-2 pivot
+chain per panel, the panel TRSM as a product with the panel's
+Neumann-product inverse, and the full triangular inverse as a finite
+Neumann product.  It is the plain version of the hand-written CUDA kernel
+(``parsy_bench_tpu_torch/csrc/chol_inverse.cu``): CPU tensors run it, and
+tests and ``chip_smoke.py`` compare the kernel against it.
+
+All functions are batched over a leading ``P`` axis and take a *masked*
+SPD block: rows/columns beyond the logical width carry an identity
+diagonal (see ``masked_spd``), so padded lanes factor to identity.  A
+non-positive pivot gives NaN through ``sqrt``, which the solver's
+``factor_ok`` check relies on.
+"""
+from __future__ import annotations
+
+import torch
+
+#: panel width of the flat blocked Cholesky (rank-1 chain length per panel)
+_PANEL = 16
+
+
+def _tril_mask(c, device, k=0):
+    i = torch.arange(c, device=device)[:, None]
+    j = torch.arange(c, device=device)[None, :]
+    return (j <= i + k)[None]
+
+
+def nilpotent_inv(L):
+    """Triangular inverse via the finite Neumann product.
+
+    For lower-triangular L (P, c, c) with nonzero diagonal, L = D(I + N)
+    with N strictly lower, so (I + N)^{-1} = prod_j (I + M^(2^j)),
+    M = -N: log2(c) squarings and products."""
+    P, c, _ = L.shape
+    d = torch.diagonal(L, dim1=1, dim2=2)                 # (P, c)
+    M = -(L / d[:, :, None])
+    M = M.masked_fill(~_tril_mask(c, L.device, -1), 0)
+    acc = torch.eye(c, dtype=L.dtype, device=L.device)[None] + M
+    k = 2
+    while k < c:
+        M = torch.bmm(M, M)
+        acc = acc + torch.bmm(acc, M)
+        k *= 2
+    return acc / d[:, None, :]
+
+
+def masked_spd(D, w, c, dtype):
+    """Mask a gathered (P, c, c) block to its logical width ``w`` (P,):
+    keep the valid symmetric part, identity on the padded diagonal."""
+    ar = torch.arange(c, device=D.device)
+    i = ar[None, :, None]
+    j = ar[None, None, :]
+    wv = w[:, None, None]
+    valid = (i < wv) & (j < wv)
+    D = D.to(dtype).masked_fill(~(valid & (j <= i)), 0)
+    strict = D.masked_fill(~(j < i), 0)
+    D = D + strict.transpose(1, 2)
+    eye_pad = ((i == j) & (i >= wv)).to(dtype)
+    return D + eye_pad
+
+
+def _chol_panel(D, pw):
+    """Unrolled rank-2 Cholesky chain for a (P, pw, pw) masked SPD block:
+    two columns per step through the closed-form 2x2 pivot."""
+    n = pw
+    cols = []
+    ar = torch.arange(n, device=D.device)
+    j = 0
+    while j < n:
+        if j + 1 < n:
+            a = D[:, j, j]
+            l11 = torch.sqrt(a)
+            cj = (D[:, :, j] / l11[:, None]) * (ar >= j)
+            l21 = cj[:, j + 1]
+            c22 = D[:, j + 1, j + 1] - l21 * l21
+            l22 = torch.sqrt(c22)
+            cj1 = ((D[:, :, j + 1] - cj * l21[:, None])
+                   / l22[:, None]) * (ar >= j + 1)
+            cols.extend([cj, cj1])
+            D = D - (cj[:, :, None] * cj[:, None, :]
+                     + cj1[:, :, None] * cj1[:, None, :])
+            j += 2
+        else:
+            d = torch.sqrt(D[:, j, j])
+            cvec = (D[:, :, j] / d[:, None]) * (ar >= j)
+            cols.append(cvec)
+            D = D - cvec[:, :, None] * cvec[:, None, :]
+            j += 1
+    return torch.stack(cols, dim=2)
+
+
+def cholesky_inverse(D):
+    """Batched blocked Cholesky with inverse: D (P, c, c) masked SPD ->
+    (L, Linv), both lower triangular.
+
+    Per 16-wide panel: the rank-2 chain on the diagonal block, one small
+    ``nilpotent_inv`` for the panel TRSM, and one rank-16 trailing update;
+    the full Linv comes from one ``nilpotent_inv`` at the end."""
+    P, c, _ = D.shape
+    if c <= _PANEL:
+        L = _chol_panel(D, c)
+        return L, nilpotent_inv(L)
+    if c % _PANEL:
+        # the panel loop slices fixed 16-wide panels
+        raise ValueError(f"width class {c} is not a multiple of {_PANEL}")
+    L = torch.zeros_like(D)
+    A = D.clone()
+    for j0 in range(0, c, _PANEL):
+        j1 = j0 + _PANEL
+        Lp = _chol_panel(A[:, j0:j1, j0:j1], _PANEL)
+        iLp = nilpotent_inv(Lp)
+        L[:, j0:j1, j0:j1] = Lp
+        if j1 < c:
+            below = torch.bmm(A[:, j1:, j0:j1], iLp.transpose(1, 2))
+            L[:, j1:, j0:j1] = below
+            A[:, j1:, j1:] -= torch.bmm(below, below.transpose(1, 2))
+    return L, nilpotent_inv(L)
