@@ -10,9 +10,10 @@ Phases, each of which raises on failure (nothing is caught):
    versions; TF32 off for matmuls and cuDNN, float32 matmul precision
    "highest".  Exits 2 without a result when CUDA is not available;
 2. build: compiles the CUDA kernels from ``parsy_bench_tpu_torch/csrc``
-   with nvcc and loads them; reports whether the shared inspector's
-   native library loaded (without it analyze falls back to numpy);
-3. the batched Cholesky + inverse kernel against its plain PyTorch
+   (one nvcc per source, all at once) and loads them; reports whether the
+   shared inspector's native library loaded (without it analyze falls
+   back to numpy);
+3. K1, the batched Cholesky + inverse kernel, against its plain PyTorch
    version on the card, at the main path's batch shapes (27,520 x 32 x 32
    and 87 x 128 x 128, f32): L within 1e-5*c, Linv within 1e-5, padded
    (w = 0) lanes exactly identity, ||L L^T - D||/||D|| < 1e-5 and
@@ -20,16 +21,40 @@ Phases, each of which raises on failure (nothing is caught):
    versions timed with CUDA events;
 4. main path: ``CholeskySolver`` on ``laplace_3d(48)`` (n = 110,592),
    nested dissection, f32, supernodal tier, device "cuda": analyze, one
-   warm and five timed ``factorize`` calls, with the kernel's launch count
-   equal to the plan's ``chol_inverse`` calls; gates: with b = L*1,
-   ``solve_lower`` gives max|1 - x| < 1e-3, and ``solve(A*1)`` gives
-   ||A x - b|| / ||b|| < 1e-3;
+   warm and five timed ``factorize`` calls, with K1's launch count equal
+   to the plan's ``chol_inverse`` calls; gates: with b = L*1,
+   ``solve_lower`` (the pair-granular fast solve) gives max|1 - x| < 1e-3,
+   and ``solve(A*1)`` gives ||A x - b|| / ||b|| < 1e-3;
 5. factor residual ||L L^T - A|| / ||A|| < 1e-3 at ``laplace_3d(24)``
-   (n = 13,824; the host-side scipy product at n = 110,592 takes minutes).
+   (n = 13,824; the host-side scipy product at n = 110,592 takes minutes);
+6. K2, the fused finalize kernel, against its plain version on the card
+   at the fused path's bucket shapes (27,456 x 32 x 32, 640 x 128 x 32,
+   1 x 4,096 x 32, checked against the plan) and at 64 x 128 x 128, f32:
+   diff within 1e-5*c of the largest |entry|, w = 0 lanes, lanes at or
+   beyond cnt exactly zero, NaN from a negative pivot; both versions
+   timed with CUDA events;
+7. the fused configuration at n = 110,592: a second executor on the same
+   plan with ``fused_finalize=True``; one warm call, then five fused and
+   five default ``factorize`` calls in turns (ABBA), with K2 launched
+   ``fused_calls_per_factorize`` and K1 ``chol_calls_per_factorize``
+   times per fused call; the fused pools agree with the default pools
+   within 1e-3 of the pool scale; gates as in phase 4 on the fused factor,
+   and the factor residual < 1e-3 at ``laplace_3d(24)`` with
+   ``fused_finalize=True``; the device operations and device time of one
+   fused and one default factorize, from ``torch.profiler``;
+8. the forward solves: ``solve_prep`` timed once, the fast ``solve_lower``
+   and the leveled ``_solve_lower_impl`` timed in turns, each with the
+   b = L*1 gate, and the device operations of each counted with
+   ``torch.profiler``;
+9. the probes (``parsy_bench_tpu_torch.probes.run``): P1 copy bit-equal,
+   P2 matmul within 1e-5*K*max|a|*max|b| and ones @ 2I exactly 2, P3
+   gather within 1e-5 of the largest |sum|, at a 32 MB pool (warm L2) and
+   a 256 MB pool (L2 flushed before each call), with GB/s.
 
-Output: one JSON line of main-path numbers, the card line, one JSON line
-``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX.
+Output: JSON lines of each phase's numbers, the card line, one JSON line
+``{"kernels": [...]}`` (K1, K2, P1, P2, P3, each with the launches of its
+path's run) and, last, ``{"ok": true, "device": {...}}``.  Imports nothing
+of JAX.
 """
 from __future__ import annotations
 
@@ -41,6 +66,11 @@ import time
 #: main-path batch shapes of the chol_inverse kernel at laplace_3d(48):
 #: the largest (P, c) per width class (checked against the plan below)
 K1_SHAPES = ((27520, 32), (87, 128))
+#: the fused path's K2 bucket shapes (P, H, c) at laplace_3d(48): the
+#: largest lane count, a middle bucket and the tallest bucket (checked
+#: against the plan below), and one c = 128 shape, a class the executor
+#: leaves to K1
+K2_SHAPES = ((27456, 32, 32), (640, 128, 32), (1, 4096, 32), (64, 128, 128))
 
 
 def _card() -> str:
@@ -49,21 +79,6 @@ def _card() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def _cuda_ms(torch, fn, reps, warm=2):
-    """Mean milliseconds per call over ``reps`` calls, CUDA events."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _sync_s(torch, fn):
@@ -109,11 +124,65 @@ def _check_k1(torch, dense, kernels, P, c, gen):
     if not (res < 1e-5 and inv < 1e-4):
         raise AssertionError(f"K1 at ({P}, {c}): ||LL^T-D||/||D|| {res:.3e}"
                              f", ||Linv L - I|| {inv:.3e}")
-    ms = _cuda_ms(torch, lambda: kernels.cholesky_inverse_cuda(D), 20)
-    plain_ms = _cuda_ms(torch, lambda: dense.cholesky_inverse(D), 5)
+    from parsy_bench_tpu_torch.probes import cuda_ms
+    ms = cuda_ms(lambda: kernels.cholesky_inverse_cuda(D), 20)
+    plain_ms = cuda_ms(lambda: dense.cholesky_inverse(D), 5)
     return dict(shape=[P, c, c], max_abs_err_L=err_l,
                 max_abs_err_Linv=err_i, rel_residual=res,
                 inverse_err=inv, ms=ms, plain_ms=plain_ms)
+
+
+def _check_k2(torch, dense, kernels, P, H, c, gen):
+    """K2 vs its plain version on a random bucket (P, H, c) with SPD tops,
+    w = 0 and full-width lanes, and lanes at or beyond cnt."""
+    from parsy_bench_tpu_torch.probes import cuda_ms
+    dev = "cuda"
+    blk = torch.randn((P, H, c), generator=gen, device=dev)
+    A = torch.randn((P, c, c), generator=gen, device=dev)
+    blk[:, :c, :] = (torch.bmm(A, A.transpose(1, 2))
+                     + c * torch.eye(c, device=dev))
+    w = torch.randint(1, c + 1, (P,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    w[1::7] = 0
+    w[::7] = c
+    cnt = P - P // 8
+    diff = kernels.finalize_fused_cuda(blk, w, cnt)
+    ref = dense.finalize_fused(blk, w, cnt)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((diff - ref).abs().max())
+    if not err <= 1e-5 * c * scale:
+        raise AssertionError(f"K2 disagrees with its plain version at ({P}, "
+                             f"{H}, {c}): |d| {err:.3e} > {1e-5 * c:.1e} * "
+                             f"{scale:.3e}")
+    if not torch.equal(diff[cnt:], torch.zeros_like(diff[cnt:])):
+        raise AssertionError(f"K2 lanes at or beyond cnt are not zero at "
+                             f"({P}, {H}, {c})")
+    zero = (w == 0) & (torch.arange(P, device=dev) < cnt)
+    if not torch.equal(diff[zero], -blk[zero]):
+        raise AssertionError(f"K2 w = 0 lanes do not clear their block at "
+                             f"({P}, {H}, {c})")
+    ms = cuda_ms(lambda: kernels.finalize_fused_cuda(blk, w, cnt), 20)
+    plain_ms = cuda_ms(lambda: dense.finalize_fused(blk, w, cnt), 5)
+    return dict(shape=[P, H, c], cnt=cnt, max_abs_err=err, scale=scale,
+                ms=ms, plain_ms=plain_ms)
+
+
+def _device_ops(torch, fn):
+    """(device operations, device ms) of one call, from torch.profiler
+    (0 and 0.0 when the profiler records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(getattr(e, "device_time_total", None)
+             or getattr(e, "cuda_time_total", 0) for e in evs)
+    return len(evs), us / 1e3
 
 
 def main() -> int:
@@ -253,19 +322,186 @@ def main() -> int:
     if not residual < 1e-3:
         raise AssertionError(f"factor residual {residual:.3e} >= 1e-3")
 
-    # ---- 6. result -----------------------------------------------------
+    # ---- 6. K2 against its plain version ------------------------------
+    from parsy_bench_tpu_torch.ops.supernodal import SupernodalExecutor
+    exf = SupernodalExecutor(plan, "float32", "cuda", fused_finalize=True)
+    fshapes = {(seg.fin[k].P, seg.fin[k].H, seg.fin[k].c)
+               for seg, tabs in zip(plan.segments, exf._segs)
+               for ks in tabs.fin_fused for k in ks}
+    want = (max(fshapes), max(fshapes, key=lambda x: (x[1], x[0])))
+    if (want != (K2_SHAPES[0], K2_SHAPES[2])
+            or K2_SHAPES[1] not in fshapes):
+        raise AssertionError(f"plan's fused buckets (largest P, tallest) "
+                             f"{want} are not the shapes phase 6 checks "
+                             f"{K2_SHAPES[:3]}")
+    k2 = [_check_k2(torch, dense, kernels, P, H, c, gen)
+          for P, H, c in K2_SHAPES]
+    for r in k2:
+        print("K2", json.dumps(r))
+    blk = (torch.eye(32, device="cuda") * 4.0).repeat(2, 2, 1)
+    blk[1, 3, 3] = -1.0
+    diff = kernels.finalize_fused_cuda(
+        blk, torch.full((2,), 32, dtype=torch.int32, device="cuda"), 2)
+    if not (torch.isfinite(diff[0]).all() and torch.isnan(diff[1]).any()):
+        raise AssertionError("K2 does not give NaN on a negative pivot")
+
+    # ---- 7. the fused configuration at n = 110,592 ---------------------
+    fexp = (exf.fused_calls_per_factorize, exf.chol_calls_per_factorize)
+    print("fused plan", json.dumps(dict(
+        k2_calls_per_factorize=fexp[0], k1_calls_per_factorize=fexp[1],
+        k1_calls_per_factorize_default=expected,
+        k2_shapes=sorted(fshapes))))
+    data = solver.ap.data
+
+    def fused_call():
+        kernels.finalize_fused_cuda.launches = 0
+        kernels.cholesky_inverse_cuda.launches = 0
+        t, pools = _sync_s(torch, lambda: exf.factorize(data))
+        got = (kernels.finalize_fused_cuda.launches,
+               kernels.cholesky_inverse_cuda.launches)
+        if got != fexp:
+            raise AssertionError(f"fused factorize launched (K2, K1) {got};"
+                                 f" the plan implies {fexp}")
+        k2_launches[0] += got[0]
+        return t, pools
+
+    k2_launches = [0]
+    fwarm_s, pf = fused_call()
+    t_fused, t_default = [], []
+    for r in range(10):              # ABBA: d f f d d f f d d f
+        if r % 4 in (0, 3):
+            t_default.append(_sync_s(torch, lambda: ex.factorize(data))[0])
+        else:
+            t, pf = fused_call()
+            t_fused.append(t)
+    t_fused.sort()
+    t_default.sort()
+    if not all(torch.isfinite(p).all() for p in pf):
+        raise AssertionError("fused factor has non-finite entries")
+    pscale = max(float(p.abs().max()) for p in solver.lx)
+    pool_err = max(float((p - q).abs().max()) for p, q in zip(pf, solver.lx))
+    if not pool_err <= 1e-3 * pscale:
+        raise AssertionError(f"fused pools differ from the default by "
+                             f"{pool_err:.3e} > 1e-3 * {pscale:.3e}")
+    import scipy.sparse as sp
+    lpat = solver.lpat
+    lf = sp.csc_matrix((exf.factor_values(pf).cpu().numpy().astype(
+        np.float64), lpat.indices, lpat.indptr), shape=(a.n, a.n))
+    bf = np.asarray(lf @ np.ones(a.n), dtype=np.float32)
+    ferr = float(np.max(np.abs(exf.solve_lower(pf, bf).cpu().numpy() - 1)))
+    if not ferr < 1e-3:
+        raise AssertionError(f"fused solve_lower with b = L*1: max|1 - x| "
+                             f"{ferr:.3e} >= 1e-3")
+    xf = np.empty(a.n)
+    xf[solver.perm] = exf.solve_spd(pf, bp).cpu().numpy()
+    fres = solver.solve_residual(b, xf)
+    if not fres < 1e-3:
+        raise AssertionError(f"fused solve(A*1): ||Ax - b||/||b|| "
+                             f"{fres:.3e} >= 1e-3")
+    fsmall = CholeskySolver(generate.laplace_3d(24), cfg, device="cuda",
+                            fused_finalize=True).factorize()
+    fresid = fsmall.factor_residual()
+    if not fresid < 1e-3:
+        raise AssertionError(f"fused factor residual {fresid:.3e} >= 1e-3")
+    fops = _device_ops(torch, lambda: exf.factorize(data))
+    dops = _device_ops(torch, lambda: ex.factorize(data))
+    fused = dict(
+        warm_factorize_s=fwarm_s,
+        fused_factorize_s_min_med_max=[t_fused[0], t_fused[2], t_fused[-1]],
+        default_factorize_s_min_med_max=[t_default[0], t_default[2],
+                                         t_default[-1]],
+        fused_gflops=plan.flops / t_fused[2] / 1e9,
+        default_gflops=plan.flops / t_default[2] / 1e9,
+        k2_launches_per_factorize=fexp[0], k1_launches_per_factorize=fexp[1],
+        fused_device_ops=fops[0], fused_device_ms=fops[1],
+        default_device_ops=dops[0], default_device_ms=dops[1],
+        pool_max_abs_diff=pool_err, pool_scale=pscale,
+        solve_lower_max_err=ferr, solve_rel_residual=fres,
+        factor_residual_n13824=fresid, card=card)
+    print("fused", json.dumps(fused))
+
+    # ---- 8. the forward solves -----------------------------------------
+    prep_s, _ = _sync_s(torch, lambda: ex._linv_pools(solver.lx))
+    linv = ex.solve_prep(solver.lx)
+    bl = ex._vec(b_l)
+
+    def fast():
+        return ex._solve_lower_fast_impl(solver.lx, bl, linv)
+
+    def leveled():
+        return ex._solve_lower_impl(solver.lx, bl)
+
+    t_fast, t_lev = [], []
+    for fn, acc in ((fast, t_fast), (leveled, t_lev), (leveled, t_lev),
+                    (fast, t_fast)) * 2:
+        t, x = _sync_s(torch, fn)
+        err = float((x - 1.0).abs().max())
+        if not err < 1e-3:
+            raise AssertionError(f"{fn.__name__} solve_lower with b = L*1: "
+                                 f"max|1 - x| {err:.3e} >= 1e-3")
+        acc.append(t)
+    fast_ops = _device_ops(torch, fast)
+    lev_ops = _device_ops(torch, leveled)
+    solves = dict(
+        solve_prep_s=prep_s, fast_solve_lower_s_min=min(t_fast),
+        leveled_solve_lower_s_min=min(t_lev),
+        fast_solve_lower_s=t_fast, leveled_solve_lower_s=t_lev,
+        fast_device_ops=fast_ops[0], fast_device_ms=fast_ops[1],
+        leveled_device_ops=lev_ops[0], leveled_device_ms=lev_ops[1],
+        card=card)
+    print("solves", json.dumps(solves))
+
+    # ---- 9. the probes -------------------------------------------------
+    from parsy_bench_tpu_torch import probes
+    pk = (kernels.probe_copy_cuda, kernels.probe_matmul_cuda,
+          kernels.probe_gather_cuda)
+    for f in pk:
+        f.launches = 0
+    precs = probes.run()
+    plaunch = [f.launches for f in pk]
+    for r in precs:
+        print("probe", json.dumps(r))
+    gathers = [r for r in precs if r["variant"] == "gather"]
+
+    # ---- 10. result ----------------------------------------------------
     print(card)
-    print(json.dumps({"kernels": [dict(
-        name="cholesky_inverse", route="cuda",
-        source="parsy_bench_tpu_torch/csrc/chol_inverse.cu",
-        replaces="parsy_bench_tpu/ops/pallas_kernels.py:273",
-        launches=launches,
-        max_abs_err=max(max(r["max_abs_err_L"], r["max_abs_err_Linv"])
-                        for r in k1),
-        # one call at each main-path shape
-        ms=sum(r["ms"] for r in k1),
-        plain_ms=sum(r["plain_ms"] for r in k1),
-        shapes=k1)]}))
+    k2_path = [r for r in k2 if r["shape"][2] <= 64]
+
+    def probe_entry(name, line, rec, launches):
+        return dict(name=name, route="cuda",
+                    source="parsy_bench_tpu_torch/csrc/probes.cu",
+                    replaces=line, launches=launches,
+                    max_abs_err=max(r["max_abs_err"] for r in rec),
+                    ms=rec[0]["ms"], plain_ms=rec[0]["plain_ms"],
+                    runs=rec)
+
+    print(json.dumps({"kernels": [
+        dict(name="cholesky_inverse", route="cuda",
+             source="parsy_bench_tpu_torch/csrc/chol_inverse.cu",
+             replaces="parsy_bench_tpu/ops/pallas_kernels.py:273",
+             launches=launches,
+             max_abs_err=max(max(r["max_abs_err_L"], r["max_abs_err_Linv"])
+                             for r in k1),
+             # one call at each main-path shape
+             ms=sum(r["ms"] for r in k1),
+             plain_ms=sum(r["plain_ms"] for r in k1),
+             shapes=k1),
+        dict(name="finalize_fused", route="cuda",
+             source="parsy_bench_tpu_torch/csrc/finalize_fused.cu",
+             replaces="parsy_bench_tpu/ops/pallas_kernels.py:235",
+             launches=k2_launches[0],
+             max_abs_err=max(r["max_abs_err"] for r in k2),
+             # one call at each fused-path shape checked (c = 32)
+             ms=sum(r["ms"] for r in k2_path),
+             plain_ms=sum(r["plain_ms"] for r in k2_path),
+             shapes=k2),
+        probe_entry("probe_copy", "scripts/pallas_probe.py:19",
+                    [precs[0]], plaunch[0]),
+        probe_entry("probe_matmul", "scripts/pallas_probe.py:34",
+                    [precs[1]], plaunch[1]),
+        probe_entry("probe_gather", "scripts/pallas_gather_probe.py:83",
+                    gathers, plaunch[2]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,6 +16,7 @@
 //      triangle, so no second buffer is needed and no thread reads a slot
 //      another thread writes;
 //   3. a coalesced write of L and Linv.
+// Steps 1 and 2 are the shared chain of chol_chain.cuh.
 // The TPU kernel's Neumann-product inverse was a workaround for serialized
 // triangular solves there; this card runs the substitution directly.
 //
@@ -33,6 +34,8 @@
 // identity.
 
 #include <cuda_runtime.h>
+
+#include "chol_chain.cuh"
 
 namespace {
 
@@ -53,40 +56,9 @@ __global__ void chol_inverse_kernel(const T* __restrict__ D,
   }
   __syncthreads();
 
-  // 1. Cholesky on the lower triangle.
-  for (int k = 0; k < c; ++k) {
-    const T d = sqrt(A[k * ld + k]);
-    for (int i = k + 1 + tid; i < c; i += nt) {
-      A[i * ld + k] = A[i * ld + k] / d;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      A[k * ld + k] = d;
-    }
-    const int m = c - k - 1;
-    for (int e = tid; e < m * m; e += nt) {
-      const int i = k + 1 + e / m;
-      const int j = k + 1 + e % m;
-      if (j <= i) {
-        A[i * ld + j] -= A[i * ld + k] * A[j * ld + k];
-      }
-    }
-    __syncthreads();
-  }
-
-  // 2. Linv column j: x_j = 1 / L_jj, x_i = -(sum_{k=j}^{i-1} L_ik x_k) / L_ii
-  //    for i > j, with x_i (i > j) stored at A[j][i].
-  for (int j = tid; j < c; j += nt) {
-    const T xj = T(1) / A[j * ld + j];
-    for (int i = j + 1; i < c; ++i) {
-      T s = A[i * ld + j] * xj;
-      for (int k = j + 1; k < i; ++k) {
-        s += A[i * ld + k] * A[j * ld + k];
-      }
-      A[j * ld + i] = (T(0) - s) / A[i * ld + i];
-    }
-  }
-  __syncthreads();
+  // 1-2. Cholesky on the lower triangle, Linv^T in the strict upper one.
+  pbt::chol_chain_factor(A, c, ld);
+  pbt::chol_chain_inverse(A, c, ld);
 
   // 3. Write out, zero above the diagonal.
   T* Lp = L + base;

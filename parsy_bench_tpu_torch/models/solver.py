@@ -39,10 +39,13 @@ class CholeskySolver:
     >>> s = CholeskySolver(a, SolverConfig(tier="supernodal"),
     ...                    device="cuda").factorize()
     >>> x = s.solve(b)
+
+    ``fused_finalize`` (off by default) finalizes the classes of width
+    <= 64 with one fused kernel per bucket (``SupernodalExecutor``).
     """
 
     def __init__(self, a: CSC, config: SolverConfig | None = None, *,
-                 device):
+                 device, fused_finalize: bool = False):
         self.config = config or SolverConfig()
         if self.config.tier != "supernodal":
             raise NotImplementedError(
@@ -87,7 +90,8 @@ class CholeskySolver:
                                           None, self.config)
         _mark("plan_s")
         self.executor = SupernodalExecutor(self.plan, self.config.dtype,
-                                           self.device)
+                                           self.device,
+                                           fused_finalize=fused_finalize)
         _mark("executor_init_s")
         self.lx = None
         self._spd_ok = None

@@ -1,10 +1,12 @@
 """Build the package's CUDA kernels with nvcc at first use.
 
-Every ``csrc/*.cu`` file is compiled by hand into one shared library with
+Every ``csrc/*.cu`` file is compiled by hand, one ``nvcc`` per source, all
+started together, and the objects are linked into one shared library with
 a plain C interface (loaded with ctypes by ``ops/kernels.py``):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o csrc/_build/libpbt_cuda_<srchash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   (each)
+    nvcc -shared -o csrc/_build/libpbt_cuda_<srchash>.so *.o
 
 The library name carries a hash of the sources, the build lands through
 an atomic rename, and stale builds of older sources are removed.  The
@@ -26,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _sources() -> list[str]:
@@ -66,14 +68,38 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = so + f".tmp{os.getpid()}"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    objs = [os.path.join(BUILD_DIR, f"{stem}_{os.path.basename(src)[:-3]}"
+                         f".{os.getpid()}.o") for src in cu]
+    # one compiler per source, all running at once
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(cu, objs)]
+    log = []
+    try:
+        for src, proc in zip(cu, procs):
+            out, _ = proc.communicate()
+            log.append(f"== {os.path.basename(src)}\n{out}")
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} (exit "
+                                   f"{proc.returncode}):\n{out}")
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode})"
+                               f":\n{link.stdout}\n{link.stderr}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(os.path.join(BUILD_DIR, stem + ".log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("".join(log))
     os.replace(tmp, so)
     # stale builds of older source revisions are dead weight
     for name in os.listdir(BUILD_DIR):

@@ -1,4 +1,5 @@
-"""Batched dense Cholesky + triangular inverse in plain PyTorch.
+"""Batched dense Cholesky + triangular inverse, and the fused finalize, in
+plain PyTorch.
 
 Counterpart of ``parsy_bench_tpu/ops/dense.py`` with the same algorithm:
 a flat right-looking Cholesky in 16-wide panels, an unrolled rank-2 pivot
@@ -6,7 +7,9 @@ chain per panel, the panel TRSM as a product with the panel's
 Neumann-product inverse, and the full triangular inverse as a finite
 Neumann product.  It is the plain version of the hand-written CUDA kernel
 (``parsy_bench_tpu_torch/csrc/chol_inverse.cu``): CPU tensors run it, and
-tests and ``chip_smoke.py`` compare the kernel against it.
+tests and ``chip_smoke.py`` compare the kernel against it.  The same holds
+for ``finalize_fused``, the whole per-bucket finalize, and its kernel
+``csrc/finalize_fused.cu``.
 
 All functions are batched over a leading ``P`` axis and take a *masked*
 SPD block: rows/columns beyond the logical width carry an identity
@@ -118,3 +121,42 @@ def cholesky_inverse(D):
             L[:, j1:, j0:j1] = below
             A[:, j1:, j1:] -= torch.bmm(below, below.transpose(1, 2))
     return L, nilpotent_inv(L)
+
+
+def finalize_diff(blk, w, cnt, L, Linv):
+    """The finalize tail of one bucket, given the factor of its masked top:
+    blk (P, H, c) window block, w (P,) logical widths, cnt true lanes,
+    (L, Linv) of ``masked_spd(blk[:, :c, :], w)`` -> the lane-masked diff
+    (P, H, c) to add onto the window.
+
+    Top rows i < w become Ltop: L on the valid w x w part, with Linv^T in
+    its strict upper triangle (the solves read it back); every other row
+    becomes Y = blk Linv^T on the columns j < w, zero beyond.  Lanes at or
+    beyond cnt get zero."""
+    P, H, c = blk.shape
+    ar = torch.arange(c, device=blk.device)
+    i_c = ar[None, :, None]
+    j_c = ar[None, None, :]
+    wv = w[:, None, None]
+    valid = (i_c < wv) & (j_c < wv)
+    LinvT = Linv.transpose(1, 2)
+    Ltop = (L.masked_fill(~valid, 0)
+            + LinvT.masked_fill(~(valid & (j_c > i_c)), 0))
+    Y = torch.bmm(blk, LinvT).masked_fill(~(j_c < wv), 0)
+    top = torch.where(i_c < wv, Ltop, Y[:, :c, :])
+    diff = torch.cat([top, Y[:, c:, :]], dim=1) - blk
+    diff[int(cnt):] = 0
+    return diff
+
+
+def finalize_fused(blk, w, cnt):
+    """The whole per-bucket finalize: masked-SPD build of the top c x c,
+    Cholesky + inverse, and ``finalize_diff``.  blk (P, H, c), w (P,)
+    int32, cnt a host integer -> diff (P, H, c).  Counterpart of
+    ``pallas_kernels._finalize_body``; the plain version of the CUDA
+    kernel ``csrc/finalize_fused.cu``."""
+    c = blk.shape[2]
+    if blk.shape[1] < c:
+        raise ValueError(f"bucket height {blk.shape[1]} below its width {c}")
+    L, Linv = cholesky_inverse(masked_spd(blk[:, :c, :], w, c, blk.dtype))
+    return finalize_diff(blk, w, cnt, L, Linv)

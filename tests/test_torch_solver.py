@@ -144,6 +144,13 @@ def test_package_imports_no_jax():
         "    dtype='float64'), device='cpu').factorize()\n"
         "x = s.solve(a.spd_rhs_for_ones())\n"
         "assert np.max(np.abs(x - 1)) < 1e-8\n"
+        "f = pt.CholeskySolver(a, pt.SolverConfig(tier='supernodal',\n"
+        "    dtype='float64'), device='cpu', fused_finalize=True)\n"
+        "f.factorize()\n"
+        "y = f.executor.solve_lower(f.lx, a.spd_rhs_for_ones())\n"
+        "assert np.isfinite(y.numpy()).all()\n"
+        "from parsy_bench_tpu_torch import probes\n"
+        "assert probes.probe_copy(y).equal(y)\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'jaxlib',\n"
         "    'parsy_bench_tpu.ops', 'parsy_bench_tpu.models',\n"
         "    'parsy_bench_tpu.parallel', 'parsy_bench_tpu.utils',\n"

@@ -154,5 +154,8 @@ def test_jax_pools_solve_in_port(case):
     assert all(p.dtype == torch.float64 for p in pools)
     x = port.executor.solve_spd(pools, b).numpy()
     assert np.max(np.abs(x - res["spd"])) <= 1e-10
+    # the fast forward solve (solve_prep on the converted pools)
+    x = port.executor.solve_lower(pools, b).numpy()
+    assert np.max(np.abs(x - res["lower"])) <= 1e-10
     back = pools_to_numpy(pools)
     assert all(np.array_equal(p, q) for p, q in zip(back, jpools))
