@@ -11,18 +11,26 @@ Phases, each of which raises on failure (nothing is caught):
    "highest".  Exits 2 without a result when CUDA is not available;
 2. build: compiles the CUDA kernels from ``parsy_bench_tpu_torch/csrc``
    (one nvcc per source, all at once) and loads them; reports whether the
-   shared inspector's native library loaded (without it analyze falls
-   back to numpy);
+   port's native inspector library (``parsy_bench_tpu_torch/native``, g++
+   at first import) loaded (without it analyze falls back to numpy);
 3. K1, the batched Cholesky + inverse kernel, against its plain PyTorch
-   version on the card, at the main path's batch shapes (27,520 x 32 x 32
-   and 87 x 128 x 128, f32): L within 1e-5*c, Linv within 1e-5, padded
-   (w = 0) lanes exactly identity, ||L L^T - D||/||D|| < 1e-5 and
-   ||Linv L - I|| < 1e-4 per block, NaN from a negative pivot; both
-   versions timed with CUDA events;
+   version on the card, f32, at the main path's batch shapes (P, c) =
+   (27,520, 32), (87, 128), (2,215, 32), (2, 128) and (1, 128) (checked
+   against the plan in phase 4), at P = 6 for c = 8, 16, 48, 64, 96 and
+   112, and in f64 at (64, 32) and (8, 128): L within 1e-5*c, Linv within
+   1e-5 (f64: 1e-10*c and 1e-10), padded (w = 0) lanes exactly identity,
+   ||L L^T - D||/||D|| < 1e-5 and ||Linv L - I|| < 1e-4 per block, NaN
+   from a negative pivot at c = 16, 32, 48 and 128.  Each shape is timed
+   with CUDA events beside the plain version and the library pair
+   ``cholesky_ex`` + ``solve_triangular``, with its bound (bytes over
+   3.35 TB/s or FLOPs over 67 TFLOP/s) and its share of the bound;
 4. main path: ``CholeskySolver`` on ``laplace_3d(48)`` (n = 110,592),
-   nested dissection, f32, supernodal tier, device "cuda": analyze, one
+   nested dissection, f32, supernodal tier, on the card: analyze, one
    warm and five timed ``factorize`` calls, with K1's launch count equal
-   to the plan's ``chol_inverse`` calls; gates: with b = L*1,
+   to the plan's ``chol_inverse`` calls; one more factorize under
+   ``torch.profiler`` gives the device operations, the device-busy ms and
+   K1's launches and device ms by kernel name (CUDA events around each
+   launch where the profiler shows no device time); gates: with b = L*1,
    ``solve_lower`` (the pair-granular fast solve) gives max|1 - x| < 1e-3,
    and ``solve(A*1)`` gives ||A x - b|| / ||b|| < 1e-3;
 5. factor residual ||L L^T - A|| / ||A|| < 1e-3 at ``laplace_3d(24)``
@@ -32,7 +40,7 @@ Phases, each of which raises on failure (nothing is caught):
    1 x 4,096 x 32, checked against the plan) and at 64 x 128 x 128, f32:
    diff within 1e-5*c of the largest |entry|, w = 0 lanes, lanes at or
    beyond cnt exactly zero, NaN from a negative pivot; both versions
-   timed with CUDA events;
+   timed with CUDA events, with the bound of each shape;
 7. the fused configuration at n = 110,592: a second executor on the same
    plan with ``fused_finalize=True``; one warm call, then five fused and
    five default ``factorize`` calls in turns (ABBA), with K2 launched
@@ -49,12 +57,16 @@ Phases, each of which raises on failure (nothing is caught):
 9. the probes (``parsy_bench_tpu_torch.probes.run``): P1 copy bit-equal,
    P2 matmul within 1e-5*K*max|a|*max|b| and ones @ 2I exactly 2, P3
    gather within 1e-5 of the largest |sum|, at a 32 MB pool (warm L2) and
-   a 256 MB pool (L2 flushed before each call), with GB/s.
+   a 256 MB pool (L2 flushed before each call), with GB/s; the yardsticks
+   ``x.clone()`` (P1), ``torch.matmul`` (P2) and ``embedding_bag`` in
+   mode "sum" (P3, checked against the plain gather) timed at the same
+   shapes.
 
 Output: JSON lines of each phase's numbers, the card line, one JSON line
 ``{"kernels": [...]}`` (K1, K2, P1, P2, P3, each with the launches of its
-path's run) and, last, ``{"ok": true, "device": {...}}``.  Imports nothing
-of JAX.
+path's run, its times, bound and yardstick) and, last,
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
+package.
 """
 from __future__ import annotations
 
@@ -63,14 +75,52 @@ import subprocess
 import sys
 import time
 
-#: main-path batch shapes of the chol_inverse kernel at laplace_3d(48):
-#: the largest (P, c) per width class (checked against the plan below)
-K1_SHAPES = ((27520, 32), (87, 128))
+#: main-path batch shapes (P, c) of the chol_inverse kernel at
+#: laplace_3d(48), checked against the plan below: the largest per width
+#: class first, then a middle and the smallest c = 128 batches and the
+#: second c = 32 batch
+K1_SHAPES = ((27520, 32), (87, 128), (2215, 32), (2, 128), (1, 128))
+#: widths the kernel takes off the main path, checked at a small batch
+K1_SMALL = ((6, 8), (6, 16), (6, 48), (6, 64), (6, 96), (6, 112))
 #: the fused path's K2 bucket shapes (P, H, c) at laplace_3d(48): the
 #: largest lane count, a middle bucket and the tallest bucket (checked
 #: against the plan below), and one c = 128 shape, a class the executor
 #: leaves to K1
 K2_SHAPES = ((27456, 32, 32), (640, 128, 32), (1, 4096, 32), (64, 128, 128))
+
+
+#: the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
+#: float32 FLOP/s on the CUDA cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+
+
+def _bound(nbytes, flops):
+    """(least ms the card could take, "bytes" or "operations"): the
+    larger of the bytes over the memory rate and the FLOPs over the f32
+    peak."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+#: bytes of the smallest unit the card's memory moves (an L2 sector)
+SECTOR = 32
+
+
+def _k1_work(P, c, itemsize):
+    """(bytes, FLOPs) of K1 on a contiguous (P, c, c) batch: the 32-byte
+    sectors that hold D's lower triangle, read once (the kernel reads
+    nothing above the diagonal), and L and Linv written whole once; c^3/3
+    for the Cholesky and c^3/3 for the inverse."""
+    import numpy as np
+    r = np.arange(P * c, dtype=np.int64)     # row i = r % c of block r // c
+    start = r * c * itemsize
+    end = start + (r % c + 1) * itemsize
+    sectors = int(((end - 1) // SECTOR - start // SECTOR + 1).sum())
+    return (sectors * SECTOR + 2 * P * c * c * itemsize,
+            P * 2 * c ** 3 / 3)
 
 
 def _card() -> str:
@@ -90,27 +140,32 @@ def _sync_s(torch, fn):
     return time.perf_counter() - t0, out
 
 
-def _check_k1(torch, dense, kernels, P, c, gen):
-    """Kernel vs plain version on random masked-SPD blocks (P, c, c)."""
+def _check_k1(torch, dense, kernels, P, c, gen, dtype=None):
+    """Kernel vs plain version on random masked-SPD blocks (P, c, c), f32
+    (bars 1e-5*c on L, 1e-5 on Linv) or f64 (1e-10*c, 1e-10); times the
+    kernel, the plain version and the library pair (``cholesky_ex`` then
+    ``solve_triangular``: no one PyTorch call returns L and Linv)."""
     dev = "cuda"
-    A = torch.randn((P, c, c), generator=gen, device=dev)
-    D0 = torch.bmm(A, A.transpose(1, 2)) + c * torch.eye(c, device=dev)
+    dtype = dtype or torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 1e-10
+    A = torch.randn((P, c, c), generator=gen, device=dev, dtype=dtype)
+    eye = torch.eye(c, device=dev, dtype=dtype)
+    D0 = torch.bmm(A, A.transpose(1, 2)) + c * eye
     w = torch.randint(0, c + 1, (P,), generator=gen, device=dev,
                       dtype=torch.int32)
     w[::7] = 0
     w[1::7] = c
-    D = dense.masked_spd(D0, w, c, torch.float32)
+    D = dense.masked_spd(D0, w, c, dtype)
     L, Linv = kernels.cholesky_inverse_cuda(D)
     Lp, Linvp = dense.cholesky_inverse(D)
     torch.cuda.synchronize()
     err_l = float((L - Lp).abs().max())
     err_i = float((Linv - Linvp).abs().max())
-    if not (err_l <= 1e-5 * c and err_i <= 1e-5):
+    if not (err_l <= tol * c and err_i <= tol):
         raise AssertionError(f"K1 disagrees with its plain version at "
-                             f"({P}, {c}): |dL| {err_l:.3e} (bar "
-                             f"{1e-5 * c:.1e}), |dLinv| {err_i:.3e} "
-                             f"(bar 1e-5)")
-    eye = torch.eye(c, device=dev)
+                             f"({P}, {c}, {dtype}): |dL| {err_l:.3e} (bar "
+                             f"{tol * c:.1e}), |dLinv| {err_i:.3e} "
+                             f"(bar {tol:.0e})")
     pad = w == 0
     if not (torch.equal(L[pad], eye.expand(int(pad.sum()), c, c))
             and torch.equal(Linv[pad], eye.expand(int(pad.sum()), c, c))):
@@ -125,11 +180,24 @@ def _check_k1(torch, dense, kernels, P, c, gen):
         raise AssertionError(f"K1 at ({P}, {c}): ||LL^T-D||/||D|| {res:.3e}"
                              f", ||Linv L - I|| {inv:.3e}")
     from parsy_bench_tpu_torch.probes import cuda_ms
+
+    def library():
+        Ll = torch.linalg.cholesky_ex(D).L
+        return Ll, torch.linalg.solve_triangular(Ll, eye.expand(P, c, c),
+                                                  upper=False)
+
     ms = cuda_ms(lambda: kernels.cholesky_inverse_cuda(D), 20)
     plain_ms = cuda_ms(lambda: dense.cholesky_inverse(D), 5)
-    return dict(shape=[P, c, c], max_abs_err_L=err_l,
-                max_abs_err_Linv=err_i, rel_residual=res,
-                inverse_err=inv, ms=ms, plain_ms=plain_ms)
+    library_ms = cuda_ms(library, 5)
+    nbytes, flops = _k1_work(P, c, D.element_size())
+    bound_ms, bound_by = _bound(nbytes, flops)
+    return dict(shape=[P, c, c], dtype=str(dtype).split(".")[-1],
+                max_abs_err_L=err_l, max_abs_err_Linv=err_i,
+                rel_residual=res, inverse_err=inv, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library="cholesky_ex + solve_triangular (two calls)",
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms, bytes=nbytes, flops=flops)
 
 
 def _check_k2(torch, dense, kernels, P, H, c, gen):
@@ -164,13 +232,27 @@ def _check_k2(torch, dense, kernels, P, H, c, gen):
                              f"({P}, {H}, {c})")
     ms = cuda_ms(lambda: kernels.finalize_fused_cuda(blk, w, cnt), 20)
     plain_ms = cuda_ms(lambda: dense.finalize_fused(blk, w, cnt), 5)
+    # diff written once, w read, and blk read once on the lanes below cnt
+    # (diff = out - blk needs all of it there, the top's upper triangle
+    # too; the lanes at or beyond cnt are zeros and read nothing).  On
+    # those lanes, at width wl = w clamped to [0, c]: the Cholesky and
+    # inverse of the wl x wl top, 2 wl^3 / 3, and the panel product
+    # Y = blk Linv^T on the rows below it, wl^2 per row
+    nbytes = P * H * c * 4 + P * 4 + cnt * H * c * 4
+    wl = w[:cnt].clamp(0, c).double()
+    flops = float((2 * wl ** 3 / 3 + (H - wl) * wl ** 2).sum())
+    bound_ms, bound_by = _bound(nbytes, flops)
     return dict(shape=[P, H, c], cnt=cnt, max_abs_err=err, scale=scale,
-                ms=ms, plain_ms=plain_ms)
+                ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms, bytes=nbytes, flops=flops)
 
 
-def _device_ops(torch, fn):
+def _device_ops(torch, fn, kernel=None):
     """(device operations, device ms) of one call, from torch.profiler
-    (0 and 0.0 when the profiler records no device activity)."""
+    (0 and 0.0 when the profiler records no device activity); with
+    ``kernel``, also (launches, device ms) of the device operations whose
+    name holds that string."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -180,9 +262,38 @@ def _device_ops(torch, fn):
         torch.cuda.synchronize()
     evs = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    us = sum(getattr(e, "device_time_total", None)
-             or getattr(e, "cuda_time_total", 0) for e in evs)
-    return len(evs), us / 1e3
+
+    def us(es):
+        return sum(getattr(e, "device_time_total", None)
+                   or getattr(e, "cuda_time_total", 0) for e in es)
+    if kernel is None:
+        return len(evs), us(evs) / 1e3
+    mine = [e for e in evs if kernel in e.name]
+    return len(evs), us(evs) / 1e3, len(mine), us(mine) / 1e3
+
+
+def _k1_event_ms(torch, kernels, fn):
+    """(launches, device ms) of K1 in one call of ``fn``, each launch
+    timed between CUDA events (for a profiler that shows no device
+    time)."""
+    orig = kernels.cholesky_inverse_cuda
+    pairs = []
+
+    def timed(D):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(D)
+        end.record()
+        pairs.append((start, end))
+        return out
+    kernels.cholesky_inverse_cuda = timed
+    try:
+        fn()
+    finally:
+        kernels.cholesky_inverse_cuda = orig
+    torch.cuda.synchronize()
+    return len(pairs), sum(a.elapsed_time(b) for a, b in pairs)
 
 
 def main() -> int:
@@ -206,9 +317,9 @@ def main() -> int:
 
     import numpy as np
 
-    import parsy_bench_tpu.native as native
-    from parsy_bench_tpu.core import generate
+    import parsy_bench_tpu_torch.native as native
     from parsy_bench_tpu_torch import CholeskySolver, SolverConfig
+    from parsy_bench_tpu_torch.core import generate
     from parsy_bench_tpu_torch.ops import build, dense, kernels
 
     # ---- 2. build ------------------------------------------------------
@@ -226,22 +337,28 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = [_check_k1(torch, dense, kernels, P, c, gen)
           for P, c in K1_SHAPES]
-    for r in k1:
+    k1_small = [_check_k1(torch, dense, kernels, P, c, gen)
+                for P, c in K1_SMALL]
+    k1_f64 = [_check_k1(torch, dense, kernels, P, c, gen, torch.float64)
+              for P, c in ((64, 32), (8, 128))]
+    for r in k1 + k1_small + k1_f64:
         print("K1", json.dumps(r))
-    D = torch.eye(16, device="cuda").repeat(2, 1, 1) * 4.0
-    D[1, 3, 3] = -1.0
-    L, Linv = kernels.cholesky_inverse_cuda(D)
-    if not (torch.isfinite(L[0]).all() and torch.isnan(L[1]).any()
-            and torch.isnan(Linv[1]).any()):
-        raise AssertionError("K1 does not give NaN on a negative pivot")
-    if kernels.cholesky_inverse_cuda(D[:0])[0].shape != (0, 16, 16):
+    for c in (16, 32, 48, 128):
+        D = torch.eye(c, device="cuda").repeat(2, 1, 1) * 4.0
+        D[1, 3, 3] = -1.0
+        L, Linv = kernels.cholesky_inverse_cuda(D)
+        if not (torch.isfinite(L[0]).all() and torch.isfinite(Linv[0]).all()
+                and torch.isnan(L[1]).any() and torch.isnan(Linv[1]).any()):
+            raise AssertionError(f"K1 does not give NaN on a negative "
+                                 f"pivot at c = {c}")
+    if kernels.cholesky_inverse_cuda(D[:0])[0].shape != (0, c, c):
         raise AssertionError("K1 mishandles an empty batch")
 
     # ---- 4. main path at n = 110,592 ----------------------------------
     a = generate.laplace_3d(48)
     cfg = SolverConfig(ordering="nd", dtype="float32", tier="supernodal")
     t0 = time.perf_counter()
-    solver = CholeskySolver(a, cfg, device="cuda")
+    solver = CholeskySolver(a, cfg)
     analyze_s = time.perf_counter() - t0
     ex = solver.executor
     plan = solver.plan
@@ -249,9 +366,12 @@ def main() -> int:
     shapes = ex.chol_batch_shapes()
     largest = tuple(sorted((max(P for P, c in shapes if c == cls), cls)
                            for cls in {c for _, c in shapes}))
-    if tuple(sorted(K1_SHAPES)) != largest:
-        raise AssertionError(f"plan's largest chol batches {largest} are "
-                             f"not the shapes phase 3 checked {K1_SHAPES}")
+    smallest128 = min(P for P, c in shapes if c == 128)
+    if (tuple(sorted(K1_SHAPES[:2])) != largest
+            or not set(K1_SHAPES) <= shapes or smallest128 != 1):
+        raise AssertionError(f"plan's chol batches {sorted(shapes)} do not "
+                             f"hold the shapes phase 3 checked {K1_SHAPES} "
+                             f"(the largest per class first)")
     stats = dict(
         segments=len(plan.segments),
         level_steps=sum(s.nsteps for s in plan.segments),
@@ -282,6 +402,17 @@ def main() -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     times.sort()
     med = times[len(times) // 2]
+    # K1's share of one default factorize's device time, by kernel name
+    ops, busy_ms, k1_prof_n, k1_dev_ms = _device_ops(
+        torch, lambda: ex.factorize(solver.ap.data), "chol_inverse")
+    k1_source = "torch.profiler"
+    if k1_dev_ms == 0.0:
+        k1_prof_n, k1_dev_ms = _k1_event_ms(
+            torch, kernels, lambda: ex.factorize(solver.ap.data))
+        k1_source = "CUDA events"
+    if k1_prof_n != expected:
+        raise AssertionError(f"{k1_source} saw {k1_prof_n} K1 launches in "
+                             f"one factorize; the plan implies {expected}")
 
     lmat = solver.factor_csc().to_scipy()
     b_l = np.asarray(lmat @ np.ones(a.n), dtype=np.float32)
@@ -311,7 +442,9 @@ def main() -> int:
         k1_ms={f"{r['shape'][0]}x{r['shape'][1]}": r["ms"] for r in k1},
         k1_plain_ms={f"{r['shape'][0]}x{r['shape'][1]}": r["plain_ms"]
                      for r in k1},
-        card=card)
+        device_ops_per_factorize=ops, device_busy_ms=busy_ms,
+        k1_device_ms=k1_dev_ms, k1_launches_per_factorize=k1_prof_n,
+        k1_timed_by=k1_source, card=card)
     print(json.dumps(main))
 
     # ---- 5. factor residual at n = 13,824 ------------------------------
@@ -462,18 +595,72 @@ def main() -> int:
     for r in precs:
         print("probe", json.dumps(r))
     gathers = [r for r in precs if r["variant"] == "gather"]
+    # the yardsticks of P1 and P2 (one PyTorch call each) at their shapes,
+    # and each probe's bound from its inputs
+    x = torch.arange(1024, dtype=torch.float32, device="cuda").reshape(8,
+                                                                      128)
+    pa, pb = (torch.randn((128, 128), generator=gen, device="cuda")
+              for _ in range(2))
+    p_lib = [probes.cuda_ms(lambda: x.clone(), 50),
+             probes.cuda_ms(lambda: torch.matmul(pa, pb), 50)]
+    # P3's yardstick, one call: embedding_bag sums each group of PER
+    # packed rows, (G, 8c), the plain gather's (G, 8, c) as a view; on
+    # each probe pool (the same seeds), as the probe timed it
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
+    for r in gathers:
+        rows = int(r["pool_mb"] * 2**20) // (probes.WIDTH * 4)
+        pool8 = torch.randn((rows // 8, 8 * probes.WIDTH), device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(rows))
+        gidx = torch.as_tensor(probes.gather_indices(rows, probes.NIDX),
+                               device="cuda").long().view(-1, probes.PER)
+
+        def bag():
+            return torch.nn.functional.embedding_bag(gidx, pool8,
+                                                     mode="sum")
+        ref = probes.gather_plain(pool8, gidx.view(-1), probes.PER)
+        bag_err = float((bag().view(ref.shape) - ref).abs().max())
+        if not bag_err <= 1e-5 * float(ref.abs().max()):
+            raise AssertionError(f"embedding_bag differs from the plain "
+                                 f"gather by {bag_err:.3e}")
+        r["library_ms"] = (probes.cuda_ms_cold(bag, 20, flush)
+                           if r["l2"] == "cold" else probes.cuda_ms(bag, 20))
+        r["library"] = "embedding_bag(mode='sum')"
+    del flush, pool8
+    p_lib.append(gathers[0]["library_ms"])
+    width = probes.WIDTH
+    uniq = len(np.unique(probes.gather_indices(probes.ROWS, probes.NIDX)))
+    p_work = [(2 * x.numel() * 4, 0),
+              (3 * 128 * 128 * 4, 2 * 128 ** 3),
+              # the distinct packed rows gathered, the indices, the sums
+              (uniq * 8 * width * 4 + probes.NIDX * 4
+               + probes.NIDX // probes.PER * 8 * width * 4,
+               probes.NIDX * 8 * width)]
 
     # ---- 10. result ----------------------------------------------------
     print(card)
     k2_path = [r for r in k2 if r["shape"][2] <= 64]
 
-    def probe_entry(name, line, rec, launches):
+    def probe_entry(name, line, rec, launches, k):
+        bound_ms, bound_by = _bound(*p_work[k])
         return dict(name=name, route="cuda",
                     source="parsy_bench_tpu_torch/csrc/probes.cu",
                     replaces=line, launches=launches,
                     max_abs_err=max(r["max_abs_err"] for r in rec),
                     ms=rec[0]["ms"], plain_ms=rec[0]["plain_ms"],
-                    runs=rec)
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=p_lib[k], runs=rec)
+
+    def summed(recs):
+        """ms, plain_ms, library_ms and bound_ms of one call at each shape
+        of ``recs``; bound_by of the shape with the largest bound."""
+        lib = [r["library_ms"] for r in recs]
+        return dict(ms=sum(r["ms"] for r in recs),
+                    plain_ms=sum(r["plain_ms"] for r in recs),
+                    bound_ms=sum(r["bound_ms"] for r in recs),
+                    bound_by=max(recs, key=lambda r: r["bound_ms"])[
+                        "bound_by"],
+                    library_ms=None if None in lib else sum(lib))
 
     print(json.dumps({"kernels": [
         dict(name="cholesky_inverse", route="cuda",
@@ -482,25 +669,22 @@ def main() -> int:
              launches=launches,
              max_abs_err=max(max(r["max_abs_err_L"], r["max_abs_err_Linv"])
                              for r in k1),
-             # one call at each main-path shape
-             ms=sum(r["ms"] for r in k1),
-             plain_ms=sum(r["plain_ms"] for r in k1),
-             shapes=k1),
+             # one call at each main-path shape; the library time is the
+             # pair cholesky_ex + solve_triangular
+             **summed(k1), shapes=k1 + k1_small + k1_f64),
         dict(name="finalize_fused", route="cuda",
              source="parsy_bench_tpu_torch/csrc/finalize_fused.cu",
              replaces="parsy_bench_tpu/ops/pallas_kernels.py:235",
              launches=k2_launches[0],
              max_abs_err=max(r["max_abs_err"] for r in k2),
              # one call at each fused-path shape checked (c = 32)
-             ms=sum(r["ms"] for r in k2_path),
-             plain_ms=sum(r["plain_ms"] for r in k2_path),
-             shapes=k2),
+             **summed(k2_path), shapes=k2),
         probe_entry("probe_copy", "scripts/pallas_probe.py:19",
-                    [precs[0]], plaunch[0]),
+                    [precs[0]], plaunch[0], 0),
         probe_entry("probe_matmul", "scripts/pallas_probe.py:34",
-                    [precs[1]], plaunch[1]),
+                    [precs[1]], plaunch[1], 1),
         probe_entry("probe_gather", "scripts/pallas_gather_probe.py:83",
-                    gathers, plaunch[2]),
+                    gathers, plaunch[2], 2),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

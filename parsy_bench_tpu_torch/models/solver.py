@@ -1,11 +1,11 @@
 """End-to-end solver: analyze -> factorize -> solve, in PyTorch.
 
 Counterpart of ``parsy_bench_tpu/models/solver.py`` (``CholeskySolver``,
-supernodal tier).  ``analyze`` is the host inspector shared with the JAX
-package (ordering, etree, column counts, supernodes) plus the plan
-emission of ``parsy_bench_tpu_torch/symbolic/splan.py``; ``factorize`` and
-``solve`` run on the device the caller names.  Arrays in and out of the
-public methods are numpy.
+supernodal tier).  ``analyze`` is the port's own copy of the JAX
+package's host inspector (ordering, etree, column counts, supernodes,
+``symbolic/splan.py``); ``factorize`` and ``solve`` run on the card unless
+the caller asks for another device (``device="cpu"``).  Arrays in and out
+of the public methods are numpy.
 """
 from __future__ import annotations
 
@@ -14,11 +14,12 @@ import time
 import numpy as np
 import torch
 
-from parsy_bench_tpu.config import SolverConfig
-from parsy_bench_tpu.core.csc import CSC
-from parsy_bench_tpu.symbolic.colcounts import col_counts, symbolic_pattern
-from parsy_bench_tpu.symbolic.etree import etree, postorder
-from parsy_bench_tpu.symbolic.ordering import compute_ordering
+from parsy_bench_tpu_torch.config import SolverConfig
+from parsy_bench_tpu_torch.core.csc import CSC
+from parsy_bench_tpu_torch.symbolic.colcounts import (col_counts,
+                                                      symbolic_pattern)
+from parsy_bench_tpu_torch.symbolic.etree import etree, postorder
+from parsy_bench_tpu_torch.symbolic.ordering import compute_ordering
 from parsy_bench_tpu_torch.ops.supernodal import (SupernodalExecutor,
                                                   resolve_device)
 from parsy_bench_tpu_torch.symbolic.splan import build_supernodal_plan
@@ -36,16 +37,18 @@ class NotPositiveDefiniteError(RuntimeError):
 class CholeskySolver:
     """Sparse SPD solver: A x = b via L L^T with fill-reducing ordering.
 
-    >>> s = CholeskySolver(a, SolverConfig(tier="supernodal"),
-    ...                    device="cuda").factorize()
+    >>> s = CholeskySolver(a, SolverConfig(tier="supernodal")).factorize()
     >>> x = s.solve(b)
 
+    ``device`` defaults to ``"cuda"`` (raises where CUDA is unavailable);
+    pass ``device="cpu"`` for the plain versions of the kernels.
     ``fused_finalize`` (off by default) finalizes the classes of width
     <= 64 with one fused kernel per bucket (``SupernodalExecutor``).
     """
 
     def __init__(self, a: CSC, config: SolverConfig | None = None, *,
-                 device, fused_finalize: bool = False):
+                 device="cuda", fused_finalize: bool = False):
+        self.device = resolve_device(device)
         self.config = config or SolverConfig()
         if self.config.tier != "supernodal":
             raise NotImplementedError(
@@ -56,7 +59,6 @@ class CholeskySolver:
             raise NotImplementedError(
                 "verify=True: symbolic/verify.py is a later port (ROADMAP "
                 "'Modules to port', symbolic/verify.py)")
-        self.device = resolve_device(device)
         if not a.is_lower():
             a = a.lower_half()
         self.a = a

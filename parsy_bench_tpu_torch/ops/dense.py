@@ -9,7 +9,8 @@ Neumann product.  It is the plain version of the hand-written CUDA kernel
 (``parsy_bench_tpu_torch/csrc/chol_inverse.cu``): CPU tensors run it, and
 tests and ``chip_smoke.py`` compare the kernel against it.  The same holds
 for ``finalize_fused``, the whole per-bucket finalize, and its kernel
-``csrc/finalize_fused.cu``.
+``csrc/finalize_fused.cu``.  ``cholesky_inverse_panels`` computes the same
+function in the kernel's own block order (tests only).
 
 All functions are batched over a leading ``P`` axis and take a *masked*
 SPD block: rows/columns beyond the logical width carry an identity
@@ -121,6 +122,61 @@ def cholesky_inverse(D):
             L[:, j1:, j0:j1] = below
             A[:, j1:, j1:] -= torch.bmm(below, below.transpose(1, 2))
     return L, nilpotent_inv(L)
+
+
+def _chol_inverse_warp(A):
+    """The CUDA kernel's one-warp routine on (P, n, n) blocks, n <= 32,
+    lower triangle read: one loop of n steps, each taking a column of the
+    right-looking Cholesky (pivot through ``rsqrt``, as the kernel does)
+    and the matching step of the forward substitution for Linv
+    (``X[:, :, j]`` is lane j's column)."""
+    P, n, _ = A.shape
+    A = A.clone()
+    L = torch.zeros_like(A)
+    X = torch.zeros_like(A)
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    for k in range(n):
+        piv = A[:, k, k]
+        inv = torch.rsqrt(piv)
+        v = A[:, k + 1:, k] * inv[:, None]
+        L[:, k, k] = piv * inv
+        L[:, k + 1:, k] = v
+        X[:, k, :] = (eye[k] - X[:, k, :]) * inv[:, None]
+        A[:, k + 1:, k + 1:] -= v[:, :, None] * v[:, None, :]
+        X[:, k + 1:, :] += v[:, :, None] * X[:, k, None, :]
+    return L, torch.tril(X)
+
+
+def cholesky_inverse_panels(D, panel=32):
+    """``cholesky_inverse`` in the CUDA kernel's block order
+    (``csrc/chol_inverse.cu``), for rehearsing that design on the CPU; the
+    solver does not call it.  Per ``panel``-wide panel: the one-warp routine
+    on the diagonal block (``_chol_inverse_warp``), the TRSM as a product
+    with the panel's inverse, the trailing update; then Linv by block
+    forward substitution, Linv_IJ = -Linv_II sum_K L_IK Linv_KJ, one block
+    row after another.  Only the lower triangle of D is read."""
+    P, c, _ = D.shape
+    A = torch.tril(D)
+    L = torch.zeros_like(D)
+    Linv = torch.zeros_like(D)
+    starts = range(0, c, panel)
+    for j0 in starts:
+        j1 = min(j0 + panel, c)
+        L11, I11 = _chol_inverse_warp(A[:, j0:j1, j0:j1])
+        L[:, j0:j1, j0:j1] = L11
+        Linv[:, j0:j1, j0:j1] = I11
+        if j1 < c:
+            L21 = torch.bmm(A[:, j1:, j0:j1], I11.transpose(1, 2))
+            L[:, j1:, j0:j1] = L21
+            A[:, j1:, j1:] -= torch.bmm(L21, L21.transpose(1, 2))
+    for i0 in starts[1:]:
+        i1 = min(i0 + panel, c)
+        for j0 in range(0, i0, panel):
+            # Linv_KJ is zero for K < J, so the sum may start at column j0
+            T = torch.bmm(L[:, i0:i1, j0:i0], Linv[:, j0:i0, j0:j0 + panel])
+            Linv[:, i0:i1, j0:j0 + panel] = -torch.bmm(
+                Linv[:, i0:i1, i0:i1], T)
+    return L, Linv
 
 
 def finalize_diff(blk, w, cnt, L, Linv):

@@ -173,14 +173,15 @@ class _SolveTables:
 
 
 class SupernodalExecutor:
-    """Numeric phase for one ``SupernodalPlan`` on one explicit device.
+    """Numeric phase for one ``SupernodalPlan`` on one device: the card
+    unless the caller passes ``device="cpu"`` (plain kernel versions).
 
     ``fused_finalize`` (off by default, as ``PBT_FUSED_FINALIZE`` is in the
     JAX executor): classes of width <= 64 finalize each bucket with one
     ``finalize_fused`` call (kernel K2 on the card) in place of the shared
     per-class ``chol_inverse`` (K1) and the unfused tail."""
 
-    def __init__(self, plan: SupernodalPlan, dtype, device,
+    def __init__(self, plan: SupernodalPlan, dtype, device="cuda",
                  fused_finalize: bool = False):
         self.plan = plan
         self.dtype = torch_dtype(dtype)

@@ -1,1 +1,2 @@
-"""Supernodal plan emission (jax-free copy of the JAX package's)."""
+"""The port's inspector: its own copies of the JAX package's ``etree``,
+``colcounts``, ``ordering``, ``supernodes`` and ``splan`` modules."""

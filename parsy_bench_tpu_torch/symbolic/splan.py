@@ -31,13 +31,13 @@ Update pairs exploit the supernodal subset property (the reference's lb/ub
 overlap scan, parallel_PB_Cholesky_05.h:137-149): rows of d at or below the
 overlap slice all appear in s's row list.
 
-COPY of ``parsy_bench_tpu/symbolic/splan.py``: the original imports
-``segment_levels`` from ``parsy_bench_tpu.ops.simplicial``, which imports
-jax at its top, so the jax-free port cannot import it.  Only the
-``segment_levels`` import differs.  The plan-equality test
+The port's own copy of ``parsy_bench_tpu/symbolic/splan.py`` (the
+reference), like the rest of its inspector (``config``, ``core``,
+``native``, ``symbolic``): the port imports nothing of the JAX package.
+Only the imports differ; ``segment_levels`` comes from
+``parsy_bench_tpu_torch/ops/simplicial.py``.  The plan-equality test
 (tests/test_torch_supernodal.py) keeps the two emitting the same plan,
-field by field.  Delete this copy once ``segment_levels`` moves out of
-``parsy_bench_tpu.ops`` into a jax-free module.
+field by field, from their own inspectors.
 """
 from __future__ import annotations
 
@@ -46,11 +46,11 @@ import dataclasses
 import numpy as np
 import scipy.sparse as sp
 
-from parsy_bench_tpu.core.csc import CSC
-from parsy_bench_tpu.config import SolverConfig
+from parsy_bench_tpu_torch.core.csc import CSC
+from parsy_bench_tpu_torch.config import SolverConfig
 from parsy_bench_tpu_torch.ops.simplicial import segment_levels
-from parsy_bench_tpu.symbolic.etree import tree_levels
-from parsy_bench_tpu.symbolic.supernodes import (
+from parsy_bench_tpu_torch.symbolic.etree import tree_levels
+from parsy_bench_tpu_torch.symbolic.supernodes import (
     ClassLayout, build_class_layout, build_partition)
 
 
@@ -396,7 +396,7 @@ def slack_levels(part, rptr: np.ndarray, rows: np.ndarray,
     earliest-level order guarantees every target is already placed.
     Ties pick the earliest level, so a balanced plan never gets deeper.
     """
-    from parsy_bench_tpu.symbolic.supernodes import _height_class
+    from parsy_bench_tpu_torch.symbolic.supernodes import _height_class
     nsuper = part.nsuper
     if nsuper == 0:
         return lev
@@ -459,14 +459,15 @@ def build_supernodal_plan(a: CSC, parent: np.ndarray, cc: np.ndarray,
     part = build_partition(a, parent, cc, config.nrelax, config.zrelax,
                            config.max_supernode_width)
     lev = tree_levels(part.sparent)
-    from parsy_bench_tpu.symbolic.supernodes import (
+    from parsy_bench_tpu_torch.symbolic.supernodes import (
         _native, supernodal_rows, supernodal_rows_from_etree)
     if lpat is None and _native is not None \
             and hasattr(_native, "supernodal_rows"):
         rptr, rows = supernodal_rows_from_etree(a, parent, part)
     else:
         if lpat is None:
-            from parsy_bench_tpu.symbolic.colcounts import symbolic_pattern
+            from parsy_bench_tpu_torch.symbolic.colcounts import (
+                symbolic_pattern)
             lpat = symbolic_pattern(a, parent)
         rptr, rows = supernodal_rows(lpat, part)
     if config.slack_placement:

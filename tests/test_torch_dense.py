@@ -139,3 +139,37 @@ def test_non_spd_gives_nan_in_both():
 def test_empty_batch():
     L, Linv = dense.cholesky_inverse(torch.zeros((0, 32, 32)))
     assert L.shape == Linv.shape == (0, 32, 32)
+
+
+@pytest.mark.parametrize("c", [8, 16, 32, 48, 128])
+def test_panels_mirror_matches_jax(c):
+    """The CUDA kernel's block order in plain PyTorch
+    (``cholesky_inverse_panels``) against the JAX dense chain: f64 within
+    1e-10, f32 within 1e-5*c on L and 1e-5 on Linv; w = 0 lanes exactly
+    identity; only the lower triangle is read."""
+    rng = np.random.default_rng(11)
+    D = _rand_spd(rng, 5, c)
+    w = np.array([0, c, c, c // 2, 1], dtype=np.int32)
+    for dtype, tol in (("float64", 1e-10), ("float32", 1e-5)):
+        Dt, Dj = _masked(D, w, dtype)
+        Lj, Linvj = (np.asarray(x) for x in _jchol(Dj))
+        upper = torch.triu(torch.full_like(Dt, 123.0), 1)
+        L, Linv = (x.numpy() for x in
+                   dense.cholesky_inverse_panels(torch.tril(Dt) + upper))
+        bar_l = tol if dtype == "float64" else tol * c
+        assert np.max(np.abs(L - Lj)) <= bar_l
+        assert np.max(np.abs(Linv - Linvj)) <= tol
+        assert np.array_equal(L[0], np.eye(c))
+        assert np.array_equal(Linv[0], np.eye(c))
+        assert np.all(np.triu(L, 1) == 0) and np.all(np.triu(Linv, 1) == 0)
+
+
+@pytest.mark.parametrize("c", [16, 48])
+def test_panels_mirror_negative_pivot_gives_nan(c):
+    rng = np.random.default_rng(12)
+    D = torch.as_tensor(_rand_spd(rng, 2, c))
+    D[1, 3, 3] = -1.0
+    L, Linv = dense.cholesky_inverse_panels(D)
+    for X in (L, Linv):
+        assert torch.isfinite(X[0]).all()
+        assert torch.isnan(X[1]).any()

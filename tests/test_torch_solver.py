@@ -132,13 +132,14 @@ def test_chol_inverse_dispatch_cpu():
 
 def test_package_imports_no_jax():
     """In a process where jax cannot be imported, the port imports,
-    factorizes and solves, and loads nothing of the JAX executors."""
+    factorizes and solves, and loads no module of jax and none of the JAX
+    package (``parsy_bench_tpu`` or anything under it)."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import numpy as np\n"
         "import parsy_bench_tpu_torch as pt\n"
-        "from parsy_bench_tpu.core import generate\n"
+        "from parsy_bench_tpu_torch.core import generate\n"
         "a = generate.SUITE['tiny']()\n"
         "s = pt.CholeskySolver(a, pt.SolverConfig(tier='supernodal',\n"
         "    dtype='float64'), device='cpu').factorize()\n"
@@ -151,11 +152,8 @@ def test_package_imports_no_jax():
         "assert np.isfinite(y.numpy()).all()\n"
         "from parsy_bench_tpu_torch import probes\n"
         "assert probes.probe_copy(y).equal(y)\n"
-        "bad = [m for m in sys.modules if m.startswith(('jax', 'jaxlib',\n"
-        "    'parsy_bench_tpu.ops', 'parsy_bench_tpu.models',\n"
-        "    'parsy_bench_tpu.parallel', 'parsy_bench_tpu.utils',\n"
-        "    'parsy_bench_tpu.symbolic.splan', 'parsy_bench_tpu.symbolic.'\n"
-        "    'verify', 'parsy_bench_tpu.symbolic.dplan'))\n"
+        "bad = [m for m in sys.modules if (m.startswith(('jax', 'jaxlib',\n"
+        "    'parsy_bench_tpu.')) or m == 'parsy_bench_tpu')\n"
         "    and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
@@ -164,3 +162,45 @@ def test_package_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _imported_modules(path):
+    """Every module an ``import`` or ``from ... import`` statement names
+    anywhere in the file (inside functions too)."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    return names
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """chip_smoke.py imports the port inside main(), so importing it as a
+    module checks nothing: its import statements are read instead."""
+    names = _imported_modules(os.path.join(_REPO, "chip_smoke.py"))
+    assert "parsy_bench_tpu_torch" in {n.split(".")[0] for n in names}
+    bad = [n for n in names if n.split(".")[0] in ("parsy_bench_tpu", "jax",
+                                                  "jaxlib")]
+    assert not bad, bad
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Without ``device`` the solver and the executor ask for the card, so
+    on a host without CUDA they raise instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from parsy_bench_tpu_torch import SolverConfig as PortConfig
+    from parsy_bench_tpu_torch.core import generate as port_generate
+    a = port_generate.SUITE["tiny"]()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CholeskySolver(a)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CholeskySolver(a, PortConfig(tier="supernodal"))
+    plan = CholeskySolver(a, PortConfig(tier="supernodal"),
+                          device="cpu").plan
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        supernodal.SupernodalExecutor(plan, "float64")

@@ -1,7 +1,9 @@
 """The port's supernodal inspector copy and executor against the JAX
 package, on the same matrices, configurations and inputs (CPU, small).
 
-* plan equality: the port's ``build_supernodal_plan`` (a jax-free copy)
+* plan equality: the port's own inspector (its copies of the ordering,
+  etree, column counts and ``build_supernodal_plan``, and its own
+  ``SolverConfig``) gives the JAX permutation, etree and column counts and
   emits the JAX plan field by field, down to every table array;
 * executor: after ``factorize`` the packed pools agree element-wise,
   ``factor_values`` agrees, and ``solve_lower`` / ``solve_upper`` /
@@ -26,6 +28,8 @@ from parsy_bench_tpu.config import SolverConfig
 from parsy_bench_tpu.core import generate
 from parsy_bench_tpu.models import CholeskySolver as JaxCholeskySolver
 from parsy_bench_tpu_torch import CholeskySolver
+from parsy_bench_tpu_torch import SolverConfig as PortConfig
+from parsy_bench_tpu_torch.core import generate as port_generate
 from parsy_bench_tpu_torch.ops.convert import (pools_from_numpy,
                                                pools_to_numpy)
 
@@ -34,19 +38,20 @@ from parsy_bench_tpu_torch.ops.convert import (pools_from_numpy,
 # of them oversubscribes the cores many times over on these small ops
 torch.set_num_threads(1)
 
-#: name -> (matrix factory, SolverConfig overrides)
+#: name -> (matrix factory of a ``generate`` module, SolverConfig
+#: overrides)
 CASES = {
-    "tiny_amd": (lambda: generate.SUITE["tiny"](), dict(ordering="amd")),
-    "tiny_amd_scatter": (lambda: generate.SUITE["tiny"](),
+    "tiny_amd": (lambda g: g.SUITE["tiny"](), dict(ordering="amd")),
+    "tiny_amd_scatter": (lambda g: g.SUITE["tiny"](),
                          dict(ordering="amd", update_delta="scatter")),
-    "bcsstk14ish_amd": (lambda: generate.SUITE["bcsstk14ish"](),
+    "bcsstk14ish_amd": (lambda g: g.SUITE["bcsstk14ish"](),
                         dict(ordering="amd")),
-    "laplace3d8_nd": (lambda: generate.laplace_3d(8), dict(ordering="nd")),
-    "laplace3d8_nd_scatter": (lambda: generate.laplace_3d(8),
+    "laplace3d8_nd": (lambda g: g.laplace_3d(8), dict(ordering="nd")),
+    "laplace3d8_nd_scatter": (lambda g: g.laplace_3d(8),
                               dict(ordering="nd", update_delta="scatter")),
     # fin_bucket_elems=4096 splits finalize and update buckets and the
     # shared-chol batches
-    "laplace2d16_amd_split": (lambda: generate.laplace_2d(16),
+    "laplace2d16_amd_split": (lambda g: g.laplace_2d(16),
                               dict(ordering="amd", fin_bucket_elems=4096)),
 }
 
@@ -83,13 +88,23 @@ def _assert_same(x, y, path):
 @pytest.mark.parametrize("case", ["tiny_amd", "bcsstk14ish_amd",
                                   "laplace3d8_nd", "laplace3d8_nd_scatter"])
 def test_plan_matches_jax(case):
-    a = CASES[case][0]()
-    cfg = _config(case, "float64")
-    port = CholeskySolver(a, cfg, device="cpu")
-    ref = JaxCholeskySolver(a, cfg)
+    """Each package's solver from its own matrix generator, config and
+    inspector: the same matrix, permutation, etree, column counts and
+    plan."""
+    a = CASES[case][0](port_generate)
+    aj = CASES[case][0](generate)
+    for x, y in ((a.indptr, aj.indptr), (a.indices, aj.indices),
+                 (a.data, aj.data)):
+        assert np.array_equal(x, y)
+    pcfg = PortConfig(tier="supernodal", dtype="float64", **CASES[case][1])
+    assert type(pcfg).__module__ == "parsy_bench_tpu_torch.config"
+    port = CholeskySolver(a, pcfg, device="cpu")
+    ref = JaxCholeskySolver(aj, _config(case, "float64"))
     assert np.array_equal(port.perm, ref.perm)
+    assert np.array_equal(port.parent, ref.parent)
+    assert np.array_equal(port.cc, ref.cc)
     has_gsc = any(seg.gsc is not None for seg in port.plan.segments)
-    assert has_gsc == (cfg.update_delta == "gather")
+    assert has_gsc == (pcfg.update_delta == "gather")
     _assert_same(port.plan, ref.plan, "plan")
 
 
@@ -97,7 +112,7 @@ def test_plan_matches_jax(case):
 def _run(case, dtype):
     """Both executors on one matrix: (port solver, jax solver, jax pools,
     b, jax results)."""
-    a = CASES[case][0]()
+    a = CASES[case][0](generate)
     cfg = _config(case, dtype)
     port = CholeskySolver(a, cfg, device="cpu").factorize()
     ref = JaxCholeskySolver(a, cfg).factorize()
@@ -136,7 +151,7 @@ def test_executor_matches_jax(case, dtype):
 def test_split_plan_splits():
     """The forced-split case really splits buckets and chol batches."""
     port, _, _, _, _ = _run("laplace2d16_amd_split", "float64")
-    base = CholeskySolver(CASES["laplace2d16_amd_split"][0](),
+    base = CholeskySolver(CASES["laplace2d16_amd_split"][0](generate),
                           SolverConfig(tier="supernodal", ordering="amd",
                                        dtype="float64"), device="cpu")
     nfin = [sum(len(s.fin) for s in x.plan.segments) for x in (port, base)]
