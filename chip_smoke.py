@@ -29,8 +29,8 @@ Phases, each of which raises on failure (nothing is caught):
    warm and five timed ``factorize`` calls, with K1's launch count equal
    to the plan's ``chol_inverse`` calls; one more factorize under
    ``torch.profiler`` gives the device operations, the device-busy ms and
-   K1's launches and device ms by kernel name (CUDA events around each
-   launch where the profiler shows no device time); gates: with b = L*1,
+   K1's launches and device ms by kernel name (a profile with no device
+   time raises); gates: with b = L*1,
    ``solve_lower`` (the pair-granular fast solve) gives max|1 - x| < 1e-3,
    and ``solve(A*1)`` gives ||A x - b|| / ||b|| < 1e-3;
 5. factor residual ||L L^T - A|| / ||A|| < 1e-3 at ``laplace_3d(24)``
@@ -39,8 +39,12 @@ Phases, each of which raises on failure (nothing is caught):
    at the fused path's bucket shapes (27,456 x 32 x 32, 640 x 128 x 32,
    1 x 4,096 x 32, checked against the plan) and at 64 x 128 x 128, f32:
    diff within 1e-5*c of the largest |entry|, w = 0 lanes, lanes at or
-   beyond cnt exactly zero, NaN from a negative pivot; both versions
-   timed with CUDA events, with the bound of each shape;
+   beyond cnt exactly zero, NaN from a negative pivot; the leaf once more
+   at its widths and cnt in the plan (most of its lanes are one column
+   wide), and f64 at 64 x 70 x 32 and 8 x 160 x 64 (bar 1e-10*c); both
+   versions timed with CUDA events, with the bound of each shape; at the
+   two tall shapes also the kernel's time at other row-chunk counts than
+   the wrapper's (``ops/kernels.finalize_chunks``);
 7. the fused configuration at n = 110,592: a second executor on the same
    plan with ``fused_finalize=True``; one warm call, then five fused and
    five default ``factorize`` calls in turns (ABBA), with K2 launched
@@ -49,7 +53,8 @@ Phases, each of which raises on failure (nothing is caught):
    within 1e-3 of the pool scale; gates as in phase 4 on the fused factor,
    and the factor residual < 1e-3 at ``laplace_3d(24)`` with
    ``fused_finalize=True``; the device operations and device time of one
-   fused and one default factorize, from ``torch.profiler``;
+   fused and one default factorize, and K2's launches and device ms in
+   the fused one by kernel name, from ``torch.profiler``;
 8. the forward solves: ``solve_prep`` timed once, the fast ``solve_lower``
    and the leveled ``_solve_lower_impl`` timed in turns, each with the
    b = L*1 gate, and the device operations of each counted with
@@ -60,7 +65,9 @@ Phases, each of which raises on failure (nothing is caught):
    a 256 MB pool (L2 flushed before each call), with GB/s; the yardsticks
    ``x.clone()`` (P1), ``torch.matmul`` (P2) and ``embedding_bag`` in
    mode "sum" (P3, checked against the plain gather) timed at the same
-   shapes.
+   shapes; P3 and ``embedding_bag`` once more on the 256 MB pool, L2
+   flushed before each call, in 12 interleaved pairs (P3, bag, bag, P3,
+   ...), with the medians and the spread of each.
 
 Output: JSON lines of each phase's numbers, the card line, one JSON line
 ``{"kernels": [...]}`` (K1, K2, P1, P2, P3, each with the launches of its
@@ -87,6 +94,10 @@ K1_SMALL = ((6, 8), (6, 16), (6, 48), (6, 64), (6, 96), (6, 112))
 #: against the plan below), and one c = 128 shape, a class the executor
 #: leaves to K1
 K2_SHAPES = ((27456, 32, 32), (640, 128, 32), (1, 4096, 32), (64, 128, 128))
+#: the kernels' names as torch.profiler shows them (csrc/chol_inverse.cu,
+#: csrc/finalize_fused.cu)
+K1_NAMES = ("chol_inverse_warp_kernel", "chol_inverse_blocked_kernel")
+K2_NAMES = ("finalize_warp_kernel", "finalize_blocked_kernel")
 
 
 #: the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
@@ -200,29 +211,35 @@ def _check_k1(torch, dense, kernels, P, c, gen, dtype=None):
                 bound_share=bound_ms / ms, bytes=nbytes, flops=flops)
 
 
-def _check_k2(torch, dense, kernels, P, H, c, gen):
+def _check_k2(torch, dense, kernels, P, H, c, gen, w=None, cnt=None,
+              dtype=None):
     """K2 vs its plain version on a random bucket (P, H, c) with SPD tops,
-    w = 0 and full-width lanes, and lanes at or beyond cnt."""
+    f32 (bar 1e-5*c of the largest |entry|) or f64 (1e-10*c): by default
+    random widths with w = 0 and full-width lanes, and lanes at or beyond
+    cnt; or the widths ``w`` and ``cnt`` given."""
     from parsy_bench_tpu_torch.probes import cuda_ms
     dev = "cuda"
-    blk = torch.randn((P, H, c), generator=gen, device=dev)
-    A = torch.randn((P, c, c), generator=gen, device=dev)
+    dtype = dtype or torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 1e-10
+    blk = torch.randn((P, H, c), generator=gen, device=dev, dtype=dtype)
+    A = torch.randn((P, c, c), generator=gen, device=dev, dtype=dtype)
     blk[:, :c, :] = (torch.bmm(A, A.transpose(1, 2))
-                     + c * torch.eye(c, device=dev))
-    w = torch.randint(1, c + 1, (P,), generator=gen, device=dev,
-                      dtype=torch.int32)
-    w[1::7] = 0
-    w[::7] = c
-    cnt = P - P // 8
+                     + c * torch.eye(c, device=dev, dtype=dtype))
+    if w is None:
+        w = torch.randint(1, c + 1, (P,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        w[1::7] = 0
+        w[::7] = c
+        cnt = P - P // 8
     diff = kernels.finalize_fused_cuda(blk, w, cnt)
     ref = dense.finalize_fused(blk, w, cnt)
     torch.cuda.synchronize()
     scale = max(1.0, float(ref.abs().max()))
     err = float((diff - ref).abs().max())
-    if not err <= 1e-5 * c * scale:
+    if not err <= tol * c * scale:
         raise AssertionError(f"K2 disagrees with its plain version at ({P}, "
-                             f"{H}, {c}): |d| {err:.3e} > {1e-5 * c:.1e} * "
-                             f"{scale:.3e}")
+                             f"{H}, {c}, {dtype}): |d| {err:.3e} > "
+                             f"{tol * c:.1e} * {scale:.3e}")
     if not torch.equal(diff[cnt:], torch.zeros_like(diff[cnt:])):
         raise AssertionError(f"K2 lanes at or beyond cnt are not zero at "
                              f"({P}, {H}, {c})")
@@ -232,27 +249,43 @@ def _check_k2(torch, dense, kernels, P, H, c, gen):
                              f"({P}, {H}, {c})")
     ms = cuda_ms(lambda: kernels.finalize_fused_cuda(blk, w, cnt), 20)
     plain_ms = cuda_ms(lambda: dense.finalize_fused(blk, w, cnt), 5)
+    # tall buckets: the time at other row-chunk counts (each chunk factors
+    # its lane's top again), for the wrapper's choice
+    nchunk = kernels.finalize_chunks(P, H, c)
+    by_nchunk = {}
+    if H > c and nchunk > 1:
+        for n in sorted({1, max(1, nchunk // 4), nchunk,
+                         min(2 * nchunk, -(-H // 8))}):
+            got = kernels.finalize_fused_cuda(blk, w, cnt, n)
+            if not float((got - ref).abs().max()) <= tol * c * scale:
+                raise AssertionError(f"K2 at ({P}, {H}, {c}) in {n} chunks "
+                                     f"disagrees with its plain version")
+            by_nchunk[n] = cuda_ms(
+                lambda: kernels.finalize_fused_cuda(blk, w, cnt, n), 20)
     # diff written once, w read, and blk read once on the lanes below cnt
     # (diff = out - blk needs all of it there, the top's upper triangle
     # too; the lanes at or beyond cnt are zeros and read nothing).  On
     # those lanes, at width wl = w clamped to [0, c]: the Cholesky and
     # inverse of the wl x wl top, 2 wl^3 / 3, and the panel product
     # Y = blk Linv^T on the rows below it, wl^2 per row
-    nbytes = P * H * c * 4 + P * 4 + cnt * H * c * 4
+    item = blk.element_size()
+    nbytes = P * H * c * item + P * 4 + cnt * H * c * item
     wl = w[:cnt].clamp(0, c).double()
     flops = float((2 * wl ** 3 / 3 + (H - wl) * wl ** 2).sum())
     bound_ms, bound_by = _bound(nbytes, flops)
-    return dict(shape=[P, H, c], cnt=cnt, max_abs_err=err, scale=scale,
-                ms=ms, plain_ms=plain_ms, library_ms=None,
+    return dict(shape=[P, H, c], dtype=str(dtype).split(".")[-1], cnt=cnt,
+                max_abs_err=err, scale=scale,
+                ms=ms, plain_ms=plain_ms, library_ms=None, nchunk=nchunk,
+                ms_by_nchunk=by_nchunk,
                 bound_ms=bound_ms, bound_by=bound_by,
                 bound_share=bound_ms / ms, bytes=nbytes, flops=flops)
 
 
-def _device_ops(torch, fn, kernel=None):
-    """(device operations, device ms) of one call, from torch.profiler
-    (0 and 0.0 when the profiler records no device activity); with
-    ``kernel``, also (launches, device ms) of the device operations whose
-    name holds that string."""
+def _device_ops(torch, fn, kernel=()):
+    """(device operations, device ms) of one call, from torch.profiler;
+    with ``kernel`` (names), also (launches, device ms) of the device
+    operations whose name holds one of those strings.  Raises where the
+    profile holds no device time, or none for ``kernel``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -266,34 +299,34 @@ def _device_ops(torch, fn, kernel=None):
     def us(es):
         return sum(getattr(e, "device_time_total", None)
                    or getattr(e, "cuda_time_total", 0) for e in es)
-    if kernel is None:
+    if not us(evs) > 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    if not kernel:
         return len(evs), us(evs) / 1e3
-    mine = [e for e in evs if kernel in e.name]
+    mine = [e for e in evs if any(k in e.name for k in kernel)]
+    if not us(mine) > 0:
+        raise AssertionError(f"torch.profiler recorded no device time for "
+                             f"kernels named {kernel}")
     return len(evs), us(evs) / 1e3, len(mine), us(mine) / 1e3
 
 
-def _k1_event_ms(torch, kernels, fn):
-    """(launches, device ms) of K1 in one call of ``fn``, each launch
-    timed between CUDA events (for a profiler that shows no device
-    time)."""
-    orig = kernels.cholesky_inverse_cuda
-    pairs = []
+def _interleaved(probes, a, b, flush, pairs=12, reps=5):
+    """Medians and spread of two calls timed in turns (a, b, b, a, ...),
+    ``pairs`` samples each, a sample the mean of ``reps`` calls with L2
+    flushed before each (``probes.cuda_ms_cold``); and in how many of the
+    pairs a was the faster."""
+    ta, tb = [], []
+    for k in range(pairs):
+        order = ((a, ta), (b, tb)) if k % 2 == 0 else ((b, tb), (a, ta))
+        for fn, acc in order:
+            acc.append(probes.cuda_ms_cold(fn, reps, flush))
 
-    def timed(D):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = orig(D)
-        end.record()
-        pairs.append((start, end))
-        return out
-    kernels.cholesky_inverse_cuda = timed
-    try:
-        fn()
-    finally:
-        kernels.cholesky_inverse_cuda = orig
-    torch.cuda.synchronize()
-    return len(pairs), sum(a.elapsed_time(b) for a, b in pairs)
+    def stats(t):
+        s = sorted(t)
+        return dict(median=s[len(s) // 2], min=s[0], max=s[-1], all=t)
+    return dict(p3=stats(ta), library=stats(tb),
+                p3_faster_in=sum(x < y for x, y in zip(ta, tb)),
+                pairs=pairs, calls_per_sample=reps)
 
 
 def main() -> int:
@@ -404,15 +437,11 @@ def main() -> int:
     med = times[len(times) // 2]
     # K1's share of one default factorize's device time, by kernel name
     ops, busy_ms, k1_prof_n, k1_dev_ms = _device_ops(
-        torch, lambda: ex.factorize(solver.ap.data), "chol_inverse")
-    k1_source = "torch.profiler"
-    if k1_dev_ms == 0.0:
-        k1_prof_n, k1_dev_ms = _k1_event_ms(
-            torch, kernels, lambda: ex.factorize(solver.ap.data))
-        k1_source = "CUDA events"
+        torch, lambda: ex.factorize(solver.ap.data), K1_NAMES)
     if k1_prof_n != expected:
-        raise AssertionError(f"{k1_source} saw {k1_prof_n} K1 launches in "
-                             f"one factorize; the plan implies {expected}")
+        raise AssertionError(f"torch.profiler saw {k1_prof_n} K1 launches "
+                             f"in one factorize; the plan implies "
+                             f"{expected}")
 
     lmat = solver.factor_csc().to_scipy()
     b_l = np.asarray(lmat @ np.ones(a.n), dtype=np.float32)
@@ -444,7 +473,7 @@ def main() -> int:
                      for r in k1},
         device_ops_per_factorize=ops, device_busy_ms=busy_ms,
         k1_device_ms=k1_dev_ms, k1_launches_per_factorize=k1_prof_n,
-        k1_timed_by=k1_source, card=card)
+        card=card)
     print(json.dumps(main))
 
     # ---- 5. factor residual at n = 13,824 ------------------------------
@@ -469,7 +498,23 @@ def main() -> int:
                              f"{K2_SHAPES[:3]}")
     k2 = [_check_k2(torch, dense, kernels, P, H, c, gen)
           for P, H, c in K2_SHAPES]
-    for r in k2:
+    # the leaf once more at its widths and cnt in the plan (most lanes
+    # there are one column wide)
+    leaf = next(seg.fin[k] for seg, tabs in zip(plan.segments, exf._segs)
+                for ks in tabs.fin_fused for k in ks
+                if (seg.fin[k].P, seg.fin[k].H, seg.fin[k].c) == K2_SHAPES[0])
+    k2_leaf = _check_k2(torch, dense, kernels, *K2_SHAPES[0], gen,
+                        torch.as_tensor(np.asarray(leaf.w)[0], device="cuda",
+                                        dtype=torch.int32),
+                        int(np.asarray(leaf.cnt).ravel()[0]))
+    k2_leaf["widths"] = "the plan's"
+    vals, counts = np.unique(np.asarray(leaf.w)[0], return_counts=True)
+    k2_leaf["width_counts"] = dict(zip(map(str, vals.tolist()),
+                                       counts.tolist()))
+    k2_f64 = [_check_k2(torch, dense, kernels, P, H, c, gen,
+                        dtype=torch.float64)
+              for P, H, c in ((64, 70, 32), (8, 160, 64))]
+    for r in k2 + [k2_leaf] + k2_f64:
         print("K2", json.dumps(r))
     blk = (torch.eye(32, device="cuda") * 4.0).repeat(2, 2, 1)
     blk[1, 3, 3] = -1.0
@@ -536,7 +581,11 @@ def main() -> int:
     fresid = fsmall.factor_residual()
     if not fresid < 1e-3:
         raise AssertionError(f"fused factor residual {fresid:.3e} >= 1e-3")
-    fops = _device_ops(torch, lambda: exf.factorize(data))
+    fops = _device_ops(torch, lambda: exf.factorize(data), K2_NAMES)
+    if fops[2] != fexp[0]:
+        raise AssertionError(f"torch.profiler saw {fops[2]} K2 launches in "
+                             f"one fused factorize; the plan implies "
+                             f"{fexp[0]}")
     dops = _device_ops(torch, lambda: ex.factorize(data))
     fused = dict(
         warm_factorize_s=fwarm_s,
@@ -547,6 +596,7 @@ def main() -> int:
         default_gflops=plan.flops / t_default[2] / 1e9,
         k2_launches_per_factorize=fexp[0], k1_launches_per_factorize=fexp[1],
         fused_device_ops=fops[0], fused_device_ms=fops[1],
+        k2_profiled_launches=fops[2], k2_device_ms=fops[3],
         default_device_ops=dops[0], default_device_ms=dops[1],
         pool_max_abs_diff=pool_err, pool_scale=pscale,
         solve_lower_max_err=ferr, solve_rel_residual=fres,
@@ -626,6 +676,13 @@ def main() -> int:
         r["library_ms"] = (probes.cuda_ms_cold(bag, 20, flush)
                            if r["l2"] == "cold" else probes.cuda_ms(bag, 20))
         r["library"] = "embedding_bag(mode='sum')"
+        if r["l2"] == "cold":
+            idx32 = gidx.view(-1).int()
+            p3_vs_bag = _interleaved(
+                probes, lambda: kernels.probe_gather_cuda(
+                    pool8, idx32, probes.PER), bag, flush)
+            print("P3 vs embedding_bag, 256 MB pool, L2 flushed",
+                  json.dumps(p3_vs_bag))
     del flush, pool8
     p_lib.append(gathers[0]["library_ms"])
     width = probes.WIDTH
@@ -641,7 +698,7 @@ def main() -> int:
     print(card)
     k2_path = [r for r in k2 if r["shape"][2] <= 64]
 
-    def probe_entry(name, line, rec, launches, k):
+    def probe_entry(name, line, rec, launches, k, **extra):
         bound_ms, bound_by = _bound(*p_work[k])
         return dict(name=name, route="cuda",
                     source="parsy_bench_tpu_torch/csrc/probes.cu",
@@ -649,7 +706,7 @@ def main() -> int:
                     max_abs_err=max(r["max_abs_err"] for r in rec),
                     ms=rec[0]["ms"], plain_ms=rec[0]["plain_ms"],
                     bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=p_lib[k], runs=rec)
+                    library_ms=p_lib[k], runs=rec, **extra)
 
     def summed(recs):
         """ms, plain_ms, library_ms and bound_ms of one call at each shape
@@ -678,13 +735,13 @@ def main() -> int:
              launches=k2_launches[0],
              max_abs_err=max(r["max_abs_err"] for r in k2),
              # one call at each fused-path shape checked (c = 32)
-             **summed(k2_path), shapes=k2),
+             **summed(k2_path), shapes=k2 + [k2_leaf] + k2_f64),
         probe_entry("probe_copy", "scripts/pallas_probe.py:19",
                     [precs[0]], plaunch[0], 0),
         probe_entry("probe_matmul", "scripts/pallas_probe.py:34",
                     [precs[1]], plaunch[1], 1),
         probe_entry("probe_gather", "scripts/pallas_gather_probe.py:83",
-                    gathers, plaunch[2], 2),
+                    gathers, plaunch[2], 2, hbm_pairs=p3_vs_bag),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
-// Device code of K1's Cholesky + inverse for Hopper (sm_90a): a one-warp
+// Device code of the Cholesky + inverse for Hopper (sm_90a): a one-warp
 // routine for blocks of width <= 32, and the blocked routine built on it
-// for widths up to 128.  Used by chol_inverse.cu.  (K2 keeps the scalar
-// chain of chol_chain.cuh.)
+// for widths up to 128.  Used by chol_inverse.cu (K1) and
+// finalize_fused.cu (K2).
 //
 // Storage, shared by both routines: a (c, c) block in shared memory with
 // an odd row stride, of which only the lower triangle is read as the
@@ -58,9 +58,14 @@ __device__ __forceinline__ void load16(const T* p, T (&out)[16 / sizeof(T)]) {
 //      x[j] += L[j][k] x[k] (j > k).
 // The next pivot is formed in step 2 from the lane's own L[k+1][k]
 // (r[k+1] - v^2), so the dependent chain per step is a shuffle, an rsqrt
-// and two FMAs; the shared-memory round trip runs beside it.  No block barrier, no integer division.  Ends with the warp
-// synchronized.
-template <typename T>
+// and two FMAs; the shared-memory round trip runs beside it.  No block
+// barrier, no integer division.  Ends with the warp synchronized.
+//
+// kStopAtN: leave the loop after step n - 1.  The steps past n change
+// nothing in the first n rows and columns (their pivots are 1 and their
+// columns below the diagonal 0), so the result is the same; K2 sets it,
+// since most of its lanes are far narrower than 32.
+template <typename T, bool kStopAtN = false>
 __device__ __forceinline__ void warp_chol_inverse(T* S, int lds, int n,
                                                   T* Lc, T* dinv) {
   constexpr int V = 16 / sizeof(T);
@@ -82,6 +87,9 @@ __device__ __forceinline__ void warp_chol_inverse(T* S, int lds, int n,
   T p = r[0];  // this lane's candidate for the next pivot
 #pragma unroll
   for (int k = 0; k < 32; ++k) {
+    if (kStopAtN && k >= n) {
+      break;  // n is the same in every lane
+    }
     const T piv = __shfl_sync(kFullMask, p, k);
     const T inv = rsqrt(piv);
     const T d = piv * inv;

@@ -30,7 +30,7 @@
 //     (look-ahead).  Linv comes from block forward substitution, one block
 //     row after another.  At c = 128: 14 block barriers and four 32-step
 //     warp chains, against 256 barriers and an 8,128-long serial
-//     substitution in the scalar chain of chol_chain.cuh.
+//     substitution in a scalar column-by-column chain.
 // At P = 1 to 4 the launch itself (a few microseconds) is the floor.
 //
 // Numerics: FMAs on the CUDA cores (no tensor cores, so no TF32); pivots

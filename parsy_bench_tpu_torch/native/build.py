@@ -2,14 +2,16 @@
 
 The shared object is rebuilt whenever the source hash changes; a build or
 load failure makes ``load()`` raise, which ``parsy_bench_tpu_torch.native``
-swallows into the pure-NumPy fallback.
+swallows into the pure-NumPy fallback.  Concurrent first builds are safe:
+the build runs under an exclusive lock on ``_build/build.lock``.
 
 The port's own copy of ``parsy_bench_tpu/native/build.py`` (the
-reference); only the package in its imports differs.
+reference), with the lock added to ``load()``.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -174,20 +176,37 @@ def _source_tag() -> str:
 
 def load() -> NativeLib:
     os.makedirs(_BUILD, exist_ok=True)
-    so = os.path.join(_BUILD, f"libpbt_{_source_tag()}.so")
+    name = f"libpbt_{_source_tag()}.so"
+    so = os.path.join(_BUILD, name)
     if not os.path.exists(so):
-        tmp = so + f".tmp{os.getpid()}"
+        # processes that import the package at once (test workers) build
+        # one at a time; the others find the library once the lock is
+        # theirs
+        with open(os.path.join(_BUILD, "build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not os.path.exists(so):
+                _compile(so)
+                # stale builds of older source revisions are dead weight
+                for f in os.listdir(_BUILD):
+                    if (f.startswith("libpbt_") and f.endswith(".so")
+                            and f != name):
+                        try:
+                            os.remove(os.path.join(_BUILD, f))
+                        except OSError:
+                            pass
+    return NativeLib(ctypes.CDLL(so))
+
+
+def _compile(so: str) -> None:
+    """g++ into a temporary file beside ``so``, then rename it into place,
+    so that no process ever loads a half-written library."""
+    tmp = so + f".tmp{os.getpid()}"
+    try:
         subprocess.run(
             ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
              _SRC, "-o", tmp],
             check=True, capture_output=True)
         os.replace(tmp, so)
-        # stale builds of older source revisions are dead weight
-        for f in os.listdir(_BUILD):
-            p = os.path.join(_BUILD, f)
-            if f.startswith("libpbt_") and p != so:
-                try:
-                    os.remove(p)
-                except OSError:
-                    pass
-    return NativeLib(ctypes.CDLL(so))
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)

@@ -83,8 +83,9 @@ def _launch(name, fn, device, *args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-#: widest block K1 and K2 take: c * (c + 1) f64 values (with K2's row
-#: tile beside them) must fit the 227 KB of shared memory one block may use
+#: widest block K1 and K2 take: the blocked routine's f64 tiles (with K2's
+#: row stage beside them) must fit the 227 KB of shared memory one block
+#: may use
 MAX_WIDTH = 128
 
 _FLOATS = (torch.float32, torch.float64)
@@ -119,18 +120,34 @@ def cholesky_inverse_cuda(D: torch.Tensor):
 
 cholesky_inverse_cuda.launches = 0
 
-#: K2 target grid: about two waves of blocks on the H100's 132 SMs
-_K2_BLOCKS = 264
-#: K2 rows staged per shared-memory tile (csrc/finalize_fused.cu kRowTile)
-_K2_ROW_TILE = 32
+#: K2's target grid: about two waves of CTAs on the H100's 132 SMs
+_K2_CTAS = 264
 
 
-def finalize_fused_cuda(blk: torch.Tensor, w: torch.Tensor, cnt: int):
+def finalize_chunks(P: int, H: int, c: int) -> int:
+    """Row chunks K2 cuts each lane of a bucket (P, H, c) into: tall,
+    narrow buckets are cut (each chunk factors its lane's top again) so
+    that the grid fills about ``_K2_CTAS`` CTAs."""
+    if c <= 32:
+        # one warp a chunk, four a CTA (csrc/finalize_fused.cu
+        # kWarpsPerCta); at least the eight rows a warp stages at a time
+        units, min_rows = 4 * _K2_CTAS, 8
+    else:
+        # one CTA a chunk, whose blocked chain costs as much as a few
+        # hundred staged rows: only buckets much taller than wide are cut
+        units, min_rows = _K2_CTAS, 256
+    return max(1, min(-(-units // P), -(-H // min_rows)))
+
+
+def finalize_fused_cuda(blk: torch.Tensor, w: torch.Tensor, cnt: int,
+                        nchunk: int | None = None):
     """The whole per-bucket finalize on the card: blk (P, H, c) window
     block, w (P,) int32 logical widths, cnt true lanes -> the lane-masked
     diff (P, H, c) to add onto the window.  Kernel K2:
     ``csrc/finalize_fused.cu`` (replaces
-    ``pallas_kernels.finalize_fused_pallas``)."""
+    ``pallas_kernels.finalize_fused_pallas``).  ``nchunk``, the row chunks
+    per lane, defaults to ``finalize_chunks``; other counts are for
+    measuring that choice."""
     _check_cuda("finalize_fused_cuda", blk, w)
     _check_dtype("finalize_fused_cuda", blk, _FLOATS)
     _check_dtype("finalize_fused_cuda", w, (torch.int32,))
@@ -147,9 +164,10 @@ def finalize_fused_cuda(blk: torch.Tensor, w: torch.Tensor, cnt: int):
     diff = torch.empty_like(blk)
     if P == 0:
         return diff
-    # tall, narrow buckets are cut into row chunks (each recomputes the
-    # lane's chain) so that the grid fills the card
-    nchunk = min(-(-H // _K2_ROW_TILE), max(1, -(-_K2_BLOCKS // P)), 65535)
+    nchunk = finalize_chunks(P, H, c) if nchunk is None else int(nchunk)
+    if nchunk < 1 or P * nchunk >= 2**31:
+        raise ValueError(f"{P} lanes in {nchunk} chunks exceed the grid "
+                         f"limit")
     lib = _load()
     fn = (lib.pbt_finalize_fused_f32 if blk.dtype == torch.float32
           else lib.pbt_finalize_fused_f64)

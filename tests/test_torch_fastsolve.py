@@ -29,6 +29,11 @@ from parsy_bench_tpu.core.csc import CSC
 from parsy_bench_tpu.models import CholeskySolver as JaxCholeskySolver
 from parsy_bench_tpu_torch import CholeskySolver
 from parsy_bench_tpu_torch.ops.supernodal import SupernodalExecutor
+from test_torch_native import reload_native_libs
+
+# a test process that lost a native library's first-build race
+# loads it now, so both packages' inspectors run native
+reload_native_libs()
 
 # one intra-op thread per test process: the suite runs several pytest
 # workers at once, and torch's default pool (one thread per core) in each

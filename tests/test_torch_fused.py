@@ -31,6 +31,11 @@ from parsy_bench_tpu.ops.pallas_kernels import finalize_fused_pallas
 from parsy_bench_tpu_torch import CholeskySolver
 from parsy_bench_tpu_torch.ops import dense, kernels, supernodal
 from parsy_bench_tpu_torch.ops.convert import pools_to_numpy
+from test_torch_native import reload_native_libs
+
+# a test process that lost a native library's first-build race
+# loads it now, so both packages' inspectors run native
+reload_native_libs()
 
 # one intra-op thread per test process: the suite runs several pytest
 # workers at once, and torch's default pool (one thread per core) in each

@@ -15,6 +15,11 @@ import parsy_bench_tpu.native as jnative
 import parsy_bench_tpu_torch.native as pnative
 from parsy_bench_tpu.core import generate as jgen
 from parsy_bench_tpu_torch.core import generate as pgen
+from test_torch_native import reload_native_libs
+
+# a test process that lost a native library's first-build race
+# loads it now, so both packages' inspectors run native
+reload_native_libs()
 
 
 def _mods(pkg):

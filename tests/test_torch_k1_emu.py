@@ -56,11 +56,10 @@ def _masked_blocks(rng, P, c, dtype):
 
 @pytest.fixture(scope="module")
 def emu(tmp_path_factory):
-    spec = importlib.util.spec_from_file_location("k1_emu",
-                                                  _EMU / "k1_emu.py")
+    spec = importlib.util.spec_from_file_location("cuda_emu", _EMU / "emu.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    lib = mod.load(mod.build(tmp_path_factory.mktemp("k1_emu")))
+    lib = mod.build("chol_inverse.cu", tmp_path_factory.mktemp("k1_emu"))
     return mod, lib
 
 

@@ -32,6 +32,11 @@ from parsy_bench_tpu_torch import SolverConfig as PortConfig
 from parsy_bench_tpu_torch.core import generate as port_generate
 from parsy_bench_tpu_torch.ops.convert import (pools_from_numpy,
                                                pools_to_numpy)
+from test_torch_native import reload_native_libs
+
+# a test process that lost a native library's first-build race
+# loads it now, so both packages' inspectors run native
+reload_native_libs()
 
 # one intra-op thread per test process: the suite runs several pytest
 # workers at once, and torch's default pool (one thread per core) in each

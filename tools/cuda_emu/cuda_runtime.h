@@ -1,11 +1,12 @@
-// A stand-in for <cuda_runtime.h> that lets K1's CUDA source
-// (parsy_bench_tpu_torch/csrc/chol_inverse.cu and chol_blocked.cuh) be
-// compiled with g++ and run on the CPU, for correctness only.  It covers
-// the subset K1 uses: one std::thread per CUDA thread, the blocks of a
-// grid one after another, std::barrier for __syncthreads and __syncwarp,
+// A stand-in for <cuda_runtime.h> that lets the port's CUDA sources K1
+// and K2 (parsy_bench_tpu_torch/csrc/chol_inverse.cu, finalize_fused.cu
+// and chol_blocked.cuh) be compiled with g++ and run on the CPU, for
+// correctness only.  It covers the subset they use: one std::thread per
+// CUDA thread, the blocks of a grid one after another, std::barrier for
+// __syncthreads and __syncwarp,
 // __shfl_sync through a per-warp exchange array, and dynamic shared memory
 // poisoned with 0xFF bytes (NaN) before each block, so that a read of a
-// slot no thread wrote shows in the result.  k1_emu.py rewrites the
+// slot no thread wrote shows in the result.  emu.py rewrites the
 // source's <<<>>> launches into emu_launch calls and builds it.
 #pragma once
 #include <algorithm>
@@ -27,6 +28,7 @@
 #define __shared__
 
 using std::fma;
+using std::max;
 using std::min;
 using std::sqrt;
 inline float rsqrt(float x) { return 1.0f / std::sqrt(x); }
