@@ -26,16 +26,33 @@ Phases, each of which raises on failure (nothing is caught):
    3.35 TB/s or FLOPs over 67 TFLOP/s) and its share of the bound;
 4. main path: ``CholeskySolver`` on ``laplace_3d(48)`` (n = 110,592),
    nested dissection, f32, supernodal tier, on the card: analyze, one
-   warm and five timed ``factorize`` calls, with K1's launch count equal
-   to the plan's ``chol_inverse`` calls; one more factorize under
-   ``torch.profiler`` gives the device operations, the device-busy ms and
-   K1's launches and device ms by kernel name (a profile with no device
-   time raises); gates: with b = L*1,
+   first and five timed ``factorize`` calls (the first captures the
+   executor's ``factorize`` program, the others replay it).  With every
+   launch count at 0 before: K1 counted twice the plan's ``chol_inverse``
+   calls (the warm-up's launches and the capture's), the capture alone
+   once, and the replays none; one more (replayed) factorize under
+   ``torch.profiler`` gives the device operations, the device-busy ms, the
+   device span and idle share and K1's launches and device ms by kernel
+   name (a profile with no device time raises); peak allocated and
+   reserved memory after the capture; gates: with b = L*1,
    ``solve_lower`` (the pair-granular fast solve) gives max|1 - x| < 1e-3,
    and ``solve(A*1)`` gives ||A x - b|| / ||b|| < 1e-3;
-5. factor residual ||L L^T - A|| / ||A|| < 1e-3 at ``laplace_3d(24)``
+5. the captured programs at n = 110,592: ``factorize_segmented`` at
+   ``group`` = 8 and 16 (capture seconds, nodes and K1's launches per
+   replay of each program set, which sum to the plan's calls), their
+   pools and those of ``factorize`` (A's values from numpy and from a
+   device tensor) equal to ``_factorize_eager``'s bit for bit (or within
+   1e-6 of the pool scale, flagged); aliasing: a second factorize with A
+   scaled by 2 leaves the first pools as they were, and ``solve_lower``
+   with b = L*1 passes on each factor, taken in turns; in ABBA turns the
+   captured ``factorize`` against ``_factorize_eager`` (five each), the
+   fast ``solve_lower`` program against its eager loop; ``factorize_loop``
+   and ``solve_loop`` (5 iterations) per iteration; the clone of the pools
+   timed alone; the eager factorize's device busy from ``torch.profiler``;
+   ``profile_segments`` once, its sum against one factorize;
+6. factor residual ||L L^T - A|| / ||A|| < 1e-3 at ``laplace_3d(24)``
    (n = 13,824; the host-side scipy product at n = 110,592 takes minutes);
-6. K2, the fused finalize kernel, against its plain version on the card
+7. K2, the fused finalize kernel, against its plain version on the card
    at the fused path's bucket shapes (27,456 x 32 x 32, 640 x 128 x 32,
    1 x 4,096 x 32, checked against the plan) and at 64 x 128 x 128, f32:
    diff within 1e-5*c of the largest |entry|, w = 0 lanes, lanes at or
@@ -45,21 +62,23 @@ Phases, each of which raises on failure (nothing is caught):
    versions timed with CUDA events, with the bound of each shape; at the
    two tall shapes also the kernel's time at other row-chunk counts than
    the wrapper's (``ops/kernels.finalize_chunks``);
-7. the fused configuration at n = 110,592: a second executor on the same
-   plan with ``fused_finalize=True``; one warm call, then five fused and
-   five default ``factorize`` calls in turns (ABBA), with K2 launched
-   ``fused_calls_per_factorize`` and K1 ``chol_calls_per_factorize``
-   times per fused call; the fused pools agree with the default pools
-   within 1e-3 of the pool scale; gates as in phase 4 on the fused factor,
+8. the fused configuration at n = 110,592: a second executor on the same
+   plan with ``fused_finalize=True``; one first call (the capture), then
+   five fused and five default ``factorize`` calls in turns (ABBA), with
+   the counts at 0 before: K2 counted twice ``fused_calls_per_factorize``
+   and K1 twice ``chol_calls_per_factorize`` (warm-up and capture), the
+   capture alone once each, the replays none; the fused pools equal the
+   fused ``_factorize_eager``'s and agree with the default pools within
+   1e-3 of the pool scale; gates as in phase 4 on the fused factor,
    and the factor residual < 1e-3 at ``laplace_3d(24)`` with
    ``fused_finalize=True``; the device operations and device time of one
    fused and one default factorize, and K2's launches and device ms in
    the fused one by kernel name, from ``torch.profiler``;
-8. the forward solves: ``solve_prep`` timed once, the fast ``solve_lower``
-   and the leveled ``_solve_lower_impl`` timed in turns, each with the
-   b = L*1 gate, and the device operations of each counted with
-   ``torch.profiler``;
-9. the probes (``parsy_bench_tpu_torch.probes.run``): P1 copy bit-equal,
+9. the forward solves, op by op: ``_linv_pools`` timed once, the fast
+   ``_solve_lower_fast_impl`` and the leveled ``_solve_lower_impl`` timed
+   in turns, each with the b = L*1 gate, and the device operations of
+   each counted with ``torch.profiler``;
+10. the probes (``parsy_bench_tpu_torch.probes.run``): P1 copy bit-equal,
    P2 matmul within 1e-5*K*max|a|*max|b| and ones @ 2I exactly 2, P3
    gather within 1e-5 of the largest |sum|, at a 32 MB pool (warm L2) and
    a 256 MB pool (L2 flushed before each call), with GB/s; the yardsticks
@@ -71,7 +90,8 @@ Phases, each of which raises on failure (nothing is caught):
 
 Output: JSON lines of each phase's numbers, the card line, one JSON line
 ``{"kernels": [...]}`` (K1, K2, P1, P2, P3, each with the launches of its
-path's run, its times, bound and yardstick) and, last,
+path's run, its times, bound and yardstick; K1 and K2 also with their
+launches per replay from the capture and from the profiler) and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
 """
@@ -282,17 +302,24 @@ def _check_k2(torch, dense, kernels, P, H, c, gen, w=None, cnt=None,
 
 
 def _device_ops(torch, fn, kernel=()):
-    """(device operations, device ms) of one call, from torch.profiler;
-    with ``kernel`` (names), also (launches, device ms) of the device
-    operations whose name holds one of those strings.  Raises where the
-    profile holds no device time, or none for ``kernel``."""
+    """One call under torch.profiler, after one unprofiled call: its
+    device operations (``ops``), their summed device ms (``busy_ms``), the
+    ms from the first one's start to the last one's end (``span_ms``), the
+    host ms around the synchronized call (``wall_ms``, profiler overhead
+    included) and the idle share of the span and of the wall; with
+    ``kernel`` (names), also the launches (``k_n``) and device ms
+    (``k_ms``) of the operations whose name holds one of those strings.
+    Raises where the profile holds no device time, or none for
+    ``kernel``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     evs = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
 
@@ -301,13 +328,183 @@ def _device_ops(torch, fn, kernel=()):
                    or getattr(e, "cuda_time_total", 0) for e in es)
     if not us(evs) > 0:
         raise AssertionError("torch.profiler recorded no device time")
-    if not kernel:
-        return len(evs), us(evs) / 1e3
-    mine = [e for e in evs if any(k in e.name for k in kernel)]
-    if not us(mine) > 0:
-        raise AssertionError(f"torch.profiler recorded no device time for "
-                             f"kernels named {kernel}")
-    return len(evs), us(evs) / 1e3, len(mine), us(mine) / 1e3
+    busy = us(evs) / 1e3
+    span = (max(e.time_range.end for e in evs)
+            - min(e.time_range.start for e in evs)) / 1e3
+    out = dict(ops=len(evs), busy_ms=busy, span_ms=span, wall_ms=wall_ms,
+               idle_share_of_span=1 - busy / span,
+               idle_share_of_wall=1 - busy / wall_ms)
+    if kernel:
+        mine = [e for e in evs if any(k in e.name for k in kernel)]
+        if not us(mine) > 0:
+            raise AssertionError(f"torch.profiler recorded no device time "
+                                 f"for kernels named {kernel}")
+        out.update(k_n=len(mine), k_ms=us(mine) / 1e3)
+    return out
+
+
+def _l_ones(np, ex, solver, pools):
+    """b = L*1 (float32) for the factor held in ``pools``."""
+    import scipy.sparse as sp
+    lpat, n = solver.lpat, solver.a.n
+    lmat = sp.csc_matrix((ex.factor_values(pools).cpu().numpy().astype(
+        np.float64), lpat.indices, lpat.indptr), shape=(n, n))
+    return np.asarray(lmat @ np.ones(n), dtype=np.float32)
+
+
+def _abba(torch, a, b, turns):
+    """Host seconds of ``a`` and ``b``, synchronized, in turns a b b a a b
+    b a ...; ``turns`` calls in all."""
+    ta, tb = [], []
+    for r in range(turns):
+        if r % 4 in (0, 3):
+            ta.append(_sync_s(torch, a)[0])
+        else:
+            tb.append(_sync_s(torch, b)[0])
+    return sorted(ta), sorted(tb)
+
+
+def _captured_programs(torch, np, ex, solver, expected, med, prof4,
+                       card):
+    """Phase 5 (the module docstring): the executor's captured programs
+    against ``_factorize_eager`` at the main path's size."""
+    from parsy_bench_tpu_torch.probes import cuda_ms
+    data = solver.ap.data
+    nseg = len(ex.plan.segments)
+    eager = ex._factorize_eager(data)
+    pscale = max(float(p.abs().max()) for p in eager)
+
+    def agree(name, pools, ref=eager):
+        """Bit for bit, else within 1e-6 of the pool scale (flagged)."""
+        bit = all(torch.equal(p, q) for p, q in zip(pools, ref))
+        diff = max(float((p - q).abs().max()) for p, q in zip(pools, ref))
+        if not diff <= 1e-6 * pscale:
+            raise AssertionError(f"{name}: pools differ from "
+                                 f"_factorize_eager's by {diff:.3e} > "
+                                 f"1e-6 * {pscale:.3e}")
+        return dict(bit_equal=bit, max_abs_diff=diff)
+
+    checks, groups = {}, {}
+    for g in (8, 16):
+        bounds = ex.group_bounds(g)
+        if len(bounds) != -(-nseg // g):
+            raise AssertionError(f"group {g}: {len(bounds)} programs for "
+                                 f"{nseg} segments")
+        checks[f"group {g}, first call"] = agree(
+            f"factorize_segmented({g}), first call",
+            ex.factorize_segmented(data, g))
+        checks[f"group {g}, replay"] = agree(
+            f"factorize_segmented({g})", ex.factorize_segmented(data, g))
+        progs = [ex.programs["init"]] + [ex.programs[f"segments[{lo}:{hi}]"]
+                                         for lo, hi in bounds]
+        k1 = sum(p.launches["cholesky_inverse_cuda"] for p in progs)
+        if k1 != expected:
+            raise AssertionError(f"group {g}: K1 launched {k1} times per "
+                                 f"replay of the programs; the plan "
+                                 f"implies {expected}")
+        groups[g] = dict(programs=len(bounds), bounds=bounds,
+                         capture_s=sum(p.capture_s for p in progs),
+                         nodes=sum(p.nodes for p in progs),
+                         init_nodes=progs[0].nodes,
+                         k1_launches_per_replay=k1)
+    a_dev = torch.as_tensor(data).to(device="cuda", dtype=ex.dtype)
+    checks["factorize"] = agree("factorize", ex.factorize(data))
+    checks["factorize, A on the card"] = agree("factorize from a_dev",
+                                               ex.factorize(a_dev))
+
+    # aliasing: results of one call survive the next
+    lx1 = ex.factorize(data)
+    keep = [p.clone() for p in lx1]
+    lx2 = ex.factorize(2 * data)
+    if not all(torch.equal(p, q) for p, q in zip(lx1, keep)):
+        raise AssertionError("a second factorize changed the first pools")
+    checks["factorize, A scaled by 2"] = agree(
+        "factorize(2A)", lx2, ex._factorize_eager(2 * data))
+    b1, b2 = _l_ones(np, ex, solver, lx1), _l_ones(np, ex, solver, lx2)
+    alias_err = []
+    for pools, bl in ((lx1, b1), (lx2, b2), (lx1, b1)):
+        err = float((ex.solve_lower(pools, bl) - 1).abs().max())
+        if not err < 1e-3:
+            raise AssertionError(f"solve_lower with b = L*1 after the "
+                                 f"aliasing turns: max|1 - x| {err:.3e}")
+        alias_err.append(err)
+    linv1 = ex.solve_prep(lx1)
+    keep_l = [x.clone() for x in linv1]
+    linv2 = ex.solve_prep(lx2)
+    if not (all(torch.equal(x, y) for x, y in zip(linv1, keep_l))
+            and not all(torch.equal(x, y) for x, y in zip(linv1, linv2))):
+        raise AssertionError("solve_prep did not give each factor its own "
+                             "Linv pools")
+
+    # times: the captured factorize against the eager loop (ABBA)
+    t_cap, t_eag = _abba(torch, lambda: ex.factorize(data),
+                         lambda: ex._factorize_eager(data), 10)
+    t_dev = sorted(_sync_s(torch, lambda: ex.factorize(a_dev))[0]
+                   for _ in range(3))
+    t_loop = sorted(_sync_s(torch, lambda: ex.factorize_loop(data, 5))[0] / 5
+                    for _ in range(3))
+    clone_ms = cuda_ms(lambda: [p.clone() for p in ex._pools], 10)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ex._factorize_eager(data)
+    eager_extra_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ex.factorize(data)
+    replay_extra_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    prof_e = _device_ops(torch, lambda: ex._factorize_eager(data), K1_NAMES)
+
+    # the fast forward solve: its program against its eager loop, and
+    # solve_loop per iteration
+    blv = ex._vec(b1)
+    t_sc, t_se = _abba(torch, lambda: ex.solve_lower(lx1, b1),
+                       lambda: ex._solve_lower_fast_impl(lx1, blv, linv1),
+                       8)
+    xl = ex.solve_loop(lx1, b1, 5)
+    loop_err = float((xl - 1).abs().max())
+    if not loop_err < 1e-3:
+        raise AssertionError(f"solve_loop with b = L*1: max|1 - x| "
+                             f"{loop_err:.3e}")
+    t_sloop = sorted(_sync_s(torch, lambda: ex.solve_loop(lx1, b1, 5))[0]
+                     / 5 for _ in range(3))
+    solve_progs = {k: dict(capture_s=ex.programs[k].capture_s,
+                           nodes=ex.programs[k].nodes)
+                   for k in ("linv", "solve_lower_fast", "solve_spd")}
+
+    # per-segment device times (group=1 programs)
+    t0 = time.perf_counter()
+    segs = ex.profile_segments(data)
+    prof_s = time.perf_counter() - t0
+    seg_sum = sum(r["median_s"] for r in segs)
+    if not all(r["median_s"] > 0 for r in segs) or len(segs) != nseg:
+        raise AssertionError("profile_segments gave a segment no time")
+    top = sorted(segs, key=lambda r: -r["median_s"])[:5]
+    fprog = ex.programs["factorize"]
+    return dict(
+        factorize_program=dict(capture_s=fprog.capture_s, nodes=fprog.nodes,
+                               k1_launches_per_replay=fprog.launches[
+                                   "cholesky_inverse_cuda"]),
+        groups=groups, pool_checks=checks, pool_scale=pscale,
+        aliasing_solve_lower_max_err=alias_err,
+        captured_factorize_s=t_cap, eager_factorize_s=t_eag,
+        captured_median_s=t_cap[2], eager_median_s=t_eag[2],
+        captured_a_on_card_s=t_dev, factorize_loop_s_per_iter=t_loop,
+        pools_clone_ms=clone_ms,
+        eager_peak_extra_gb=eager_extra_gb,
+        replay_peak_extra_gb=replay_extra_gb,
+        eager_device_ops=prof_e["ops"],
+        eager_device_busy_ms=prof_e["busy_ms"],
+        eager_idle_share_of_median_wall=1 - prof_e["busy_ms"] / (
+            t_eag[2] * 1e3),
+        captured_idle_share_of_median_wall=1 - prof4["busy_ms"] / (
+            t_cap[2] * 1e3),
+        eager_k1_launches=prof_e["k_n"],
+        solve_lower_captured_s=t_sc, solve_lower_eager_s=t_se,
+        solve_loop_s_per_iter=t_sloop, solve_loop_max_err=loop_err,
+        solve_programs=solve_progs,
+        profile_segments_s=prof_s, segments_median_sum_s=seg_sum,
+        segments_sum_over_busy=seg_sum * 1e3 / prof4["busy_ms"],
+        segments_sum_over_wall_median=seg_sum / med,
+        slowest_segments=top, card=card)
 
 
 def _interleaved(probes, a, b, flush, pairs=12, reps=5):
@@ -418,29 +615,34 @@ def main() -> int:
         pool_mb=plan.pool_elems() * 4 / 1e6)
     print("plan", json.dumps(stats), "timings", json.dumps(solver.timings))
 
+    # the main path's run: the first factorize warms the executor's
+    # program up (K1 launched for real) and captures it (K1 launched into
+    # the graph); the five timed calls replay it, which counts nothing
     torch.cuda.reset_peak_memory_stats()
-    kernels.cholesky_inverse_cuda.launches = 0
+    kernels.reset_launch_counts()
     warm_s, _ = _sync_s(torch, solver.factorize)
-    if kernels.cholesky_inverse_cuda.launches != expected:
-        raise AssertionError(
-            f"K1 launched {kernels.cholesky_inverse_cuda.launches} times "
-            f"in one factorize; the plan implies {expected}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.memory_reserved() / 1e9
+    prog = ex.programs["factorize"]
     times = [_sync_s(torch, solver.factorize)[0] for _ in range(5)]
     launches = kernels.cholesky_inverse_cuda.launches
-    if launches != 6 * expected:
-        raise AssertionError(f"K1 launched {launches} times in 6 "
-                             f"factorizations; expected {6 * expected}")
+    k1_per_replay = prog.launches["cholesky_inverse_cuda"]
+    if (launches, k1_per_replay) != (2 * expected, expected):
+        raise AssertionError(
+            f"K1 counted {launches} launches in the main path's run and "
+            f"{k1_per_replay} in the capture; the plan implies "
+            f"{2 * expected} (warm-up and capture) and {expected}")
     if not solver.factor_ok():
         raise AssertionError("factor has non-finite entries")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     times.sort()
     med = times[len(times) // 2]
-    # K1's share of one default factorize's device time, by kernel name
-    ops, busy_ms, k1_prof_n, k1_dev_ms = _device_ops(
-        torch, lambda: ex.factorize(solver.ap.data), K1_NAMES)
+    # K1's share of one replayed factorize's device time, by kernel name
+    prof4 = _device_ops(torch, lambda: ex.factorize(solver.ap.data),
+                        K1_NAMES)
+    k1_prof_n, k1_dev_ms = prof4["k_n"], prof4["k_ms"]
     if k1_prof_n != expected:
         raise AssertionError(f"torch.profiler saw {k1_prof_n} K1 launches "
-                             f"in one factorize; the plan implies "
+                             f"in one replayed factorize; the plan implies "
                              f"{expected}")
 
     lmat = solver.factor_csc().to_scipy()
@@ -468,15 +670,30 @@ def main() -> int:
         gflops=plan.flops / med / 1e9, solve_spd_s=spd_s,
         solve_lower_s=lower_s, solve_lower_max_err=solve_err,
         solve_rel_residual=solve_res, peak_device_gb=peak_gb,
+        reserved_device_gb=reserved_gb,
+        capture_s=prog.capture_s, graph_nodes=prog.nodes,
         k1_ms={f"{r['shape'][0]}x{r['shape'][1]}": r["ms"] for r in k1},
         k1_plain_ms={f"{r['shape'][0]}x{r['shape'][1]}": r["plain_ms"]
                      for r in k1},
-        device_ops_per_factorize=ops, device_busy_ms=busy_ms,
-        k1_device_ms=k1_dev_ms, k1_launches_per_factorize=k1_prof_n,
-        card=card)
+        device_ops_per_factorize=prof4["ops"],
+        device_busy_ms=prof4["busy_ms"], device_span_ms=prof4["span_ms"],
+        profiled_wall_ms=prof4["wall_ms"],
+        idle_share_of_span=prof4["idle_share_of_span"],
+        idle_share_of_wall=prof4["idle_share_of_wall"],
+        # against the unprofiled median: the profiler's tracing slows the
+        # replay down
+        idle_share_of_median_wall=1 - prof4["busy_ms"] / (med * 1e3),
+        k1_device_ms=k1_dev_ms, k1_launches_main_path_run=launches,
+        k1_launches_per_replay=k1_per_replay,
+        k1_profiled_launches_per_replay=k1_prof_n, card=card)
     print(json.dumps(main))
 
-    # ---- 5. factor residual at n = 13,824 ------------------------------
+    # ---- 5. the captured programs at n = 110,592 -----------------------
+    captured = _captured_programs(torch, np, ex, solver, expected, med,
+                                  prof4, card)
+    print("captured", json.dumps(captured))
+
+    # ---- 6. factor residual at n = 13,824 ------------------------------
     small = CholeskySolver(generate.laplace_3d(24), cfg,
                            device="cuda").factorize()
     residual = small.factor_residual()
@@ -484,7 +701,7 @@ def main() -> int:
     if not residual < 1e-3:
         raise AssertionError(f"factor residual {residual:.3e} >= 1e-3")
 
-    # ---- 6. K2 against its plain version ------------------------------
+    # ---- 7. K2 against its plain version ------------------------------
     from parsy_bench_tpu_torch.ops.supernodal import SupernodalExecutor
     exf = SupernodalExecutor(plan, "float32", "cuda", fused_finalize=True)
     fshapes = {(seg.fin[k].P, seg.fin[k].H, seg.fin[k].c)
@@ -494,7 +711,7 @@ def main() -> int:
     if (want != (K2_SHAPES[0], K2_SHAPES[2])
             or K2_SHAPES[1] not in fshapes):
         raise AssertionError(f"plan's fused buckets (largest P, tallest) "
-                             f"{want} are not the shapes phase 6 checks "
+                             f"{want} are not the shapes phase 7 checks "
                              f"{K2_SHAPES[:3]}")
     k2 = [_check_k2(torch, dense, kernels, P, H, c, gen)
           for P, H, c in K2_SHAPES]
@@ -523,7 +740,7 @@ def main() -> int:
     if not (torch.isfinite(diff[0]).all() and torch.isnan(diff[1]).any()):
         raise AssertionError("K2 does not give NaN on a negative pivot")
 
-    # ---- 7. the fused configuration at n = 110,592 ---------------------
+    # ---- 8. the fused configuration at n = 110,592 ---------------------
     fexp = (exf.fused_calls_per_factorize, exf.chol_calls_per_factorize)
     print("fused plan", json.dumps(dict(
         k2_calls_per_factorize=fexp[0], k1_calls_per_factorize=fexp[1],
@@ -531,31 +748,35 @@ def main() -> int:
         k2_shapes=sorted(fshapes))))
     data = solver.ap.data
 
-    def fused_call():
-        kernels.finalize_fused_cuda.launches = 0
-        kernels.cholesky_inverse_cuda.launches = 0
-        t, pools = _sync_s(torch, lambda: exf.factorize(data))
-        got = (kernels.finalize_fused_cuda.launches,
-               kernels.cholesky_inverse_cuda.launches)
-        if got != fexp:
-            raise AssertionError(f"fused factorize launched (K2, K1) {got};"
-                                 f" the plan implies {fexp}")
-        k2_launches[0] += got[0]
-        return t, pools
+    def counts():
+        return (kernels.finalize_fused_cuda.launches,
+                kernels.cholesky_inverse_cuda.launches)
 
-    k2_launches = [0]
-    fwarm_s, pf = fused_call()
-    t_fused, t_default = [], []
-    for r in range(10):              # ABBA: d f f d d f f d d f
-        if r % 4 in (0, 3):
-            t_default.append(_sync_s(torch, lambda: ex.factorize(data))[0])
-        else:
-            t, pf = fused_call()
-            t_fused.append(t)
-    t_fused.sort()
-    t_default.sort()
+    # the fused path's run: the first call warms up and captures the fused
+    # executor's factorize program, the timed calls of both executors
+    # replay theirs and count nothing
+    kernels.reset_launch_counts()
+    fwarm_s, pf = _sync_s(torch, lambda: exf.factorize(data))
+    fprog = exf.programs["factorize"]
+    fcap = (fprog.launches["finalize_fused_cuda"],
+            fprog.launches["cholesky_inverse_cuda"])
+    if counts() != (2 * fexp[0], 2 * fexp[1]) or fcap != fexp:
+        raise AssertionError(f"fused factorize counted (K2, K1) {counts()} "
+                             f"in its first call and {fcap} in its capture;"
+                             f" the plan implies twice {fexp} and {fexp}")
+    t_default, t_fused = _abba(torch, lambda: ex.factorize(data),
+                               lambda: exf.factorize(data), 10)
+    pf = exf.factorize(data)
+    k2_launches = counts()[0]
+    if counts() != (2 * fexp[0], 2 * fexp[1]):
+        raise AssertionError(f"the replays counted launches: (K2, K1) "
+                             f"{counts()}")
     if not all(torch.isfinite(p).all() for p in pf):
         raise AssertionError("fused factor has non-finite entries")
+    if not all(torch.equal(p, q)
+               for p, q in zip(pf, exf._factorize_eager(data))):
+        raise AssertionError("the fused factorize program's pools differ "
+                             "from the fused _factorize_eager's")
     pscale = max(float(p.abs().max()) for p in solver.lx)
     pool_err = max(float((p - q).abs().max()) for p, q in zip(pf, solver.lx))
     if not pool_err <= 1e-3 * pscale:
@@ -582,28 +803,32 @@ def main() -> int:
     if not fresid < 1e-3:
         raise AssertionError(f"fused factor residual {fresid:.3e} >= 1e-3")
     fops = _device_ops(torch, lambda: exf.factorize(data), K2_NAMES)
-    if fops[2] != fexp[0]:
-        raise AssertionError(f"torch.profiler saw {fops[2]} K2 launches in "
-                             f"one fused factorize; the plan implies "
-                             f"{fexp[0]}")
+    if fops["k_n"] != fexp[0]:
+        raise AssertionError(f"torch.profiler saw {fops['k_n']} K2 launches "
+                             f"in one replayed fused factorize; the plan "
+                             f"implies {fexp[0]}")
     dops = _device_ops(torch, lambda: ex.factorize(data))
     fused = dict(
-        warm_factorize_s=fwarm_s,
+        warm_factorize_s=fwarm_s, capture_s=fprog.capture_s,
+        graph_nodes=fprog.nodes,
         fused_factorize_s_min_med_max=[t_fused[0], t_fused[2], t_fused[-1]],
         default_factorize_s_min_med_max=[t_default[0], t_default[2],
                                          t_default[-1]],
         fused_gflops=plan.flops / t_fused[2] / 1e9,
         default_gflops=plan.flops / t_default[2] / 1e9,
-        k2_launches_per_factorize=fexp[0], k1_launches_per_factorize=fexp[1],
-        fused_device_ops=fops[0], fused_device_ms=fops[1],
-        k2_profiled_launches=fops[2], k2_device_ms=fops[3],
-        default_device_ops=dops[0], default_device_ms=dops[1],
+        k2_launches_fused_path_run=k2_launches,
+        k2_launches_per_replay=fexp[0], k1_launches_per_replay=fexp[1],
+        fused_device_ops=fops["ops"], fused_device_ms=fops["busy_ms"],
+        fused_idle_share_of_median_wall=1 - fops["busy_ms"] / (
+            t_fused[2] * 1e3),
+        k2_profiled_launches=fops["k_n"], k2_device_ms=fops["k_ms"],
+        default_device_ops=dops["ops"], default_device_ms=dops["busy_ms"],
         pool_max_abs_diff=pool_err, pool_scale=pscale,
         solve_lower_max_err=ferr, solve_rel_residual=fres,
         factor_residual_n13824=fresid, card=card)
     print("fused", json.dumps(fused))
 
-    # ---- 8. the forward solves -----------------------------------------
+    # ---- 9. the forward solves -----------------------------------------
     prep_s, _ = _sync_s(torch, lambda: ex._linv_pools(solver.lx))
     linv = ex.solve_prep(solver.lx)
     bl = ex._vec(b_l)
@@ -629,12 +854,13 @@ def main() -> int:
         solve_prep_s=prep_s, fast_solve_lower_s_min=min(t_fast),
         leveled_solve_lower_s_min=min(t_lev),
         fast_solve_lower_s=t_fast, leveled_solve_lower_s=t_lev,
-        fast_device_ops=fast_ops[0], fast_device_ms=fast_ops[1],
-        leveled_device_ops=lev_ops[0], leveled_device_ms=lev_ops[1],
+        fast_device_ops=fast_ops["ops"], fast_device_ms=fast_ops["busy_ms"],
+        leveled_device_ops=lev_ops["ops"],
+        leveled_device_ms=lev_ops["busy_ms"],
         card=card)
     print("solves", json.dumps(solves))
 
-    # ---- 9. the probes -------------------------------------------------
+    # ---- 10. the probes -------------------------------------------------
     from parsy_bench_tpu_torch import probes
     pk = (kernels.probe_copy_cuda, kernels.probe_matmul_cuda,
           kernels.probe_gather_cuda)
@@ -694,7 +920,7 @@ def main() -> int:
                + probes.NIDX // probes.PER * 8 * width * 4,
                probes.NIDX * 8 * width)]
 
-    # ---- 10. result ----------------------------------------------------
+    # ---- 11. result ----------------------------------------------------
     print(card)
     k2_path = [r for r in k2 if r["shape"][2] <= 64]
 
@@ -723,7 +949,10 @@ def main() -> int:
         dict(name="cholesky_inverse", route="cuda",
              source="parsy_bench_tpu_torch/csrc/chol_inverse.cu",
              replaces="parsy_bench_tpu/ops/pallas_kernels.py:273",
-             launches=launches,
+             # the main path's run: the warm-up's launches and the
+             # capture's (replays count none)
+             launches=launches, launches_per_replay=k1_per_replay,
+             profiled_launches_per_replay=k1_prof_n,
              max_abs_err=max(max(r["max_abs_err_L"], r["max_abs_err_Linv"])
                              for r in k1),
              # one call at each main-path shape; the library time is the
@@ -732,7 +961,8 @@ def main() -> int:
         dict(name="finalize_fused", route="cuda",
              source="parsy_bench_tpu_torch/csrc/finalize_fused.cu",
              replaces="parsy_bench_tpu/ops/pallas_kernels.py:235",
-             launches=k2_launches[0],
+             launches=k2_launches, launches_per_replay=fexp[0],
+             profiled_launches_per_replay=fops["k_n"],
              max_abs_err=max(r["max_abs_err"] for r in k2),
              # one call at each fused-path shape checked (c = 32)
              **summed(k2_path), shapes=k2 + [k2_leaf] + k2_f64),

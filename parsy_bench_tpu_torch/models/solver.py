@@ -114,9 +114,11 @@ class CholeskySolver:
     def factorize(self, a: CSC | None = None,
                   check_spd: bool = True) -> "CholeskySolver":
         """Numeric factorization; ``a`` may carry new values on the same
-        pattern (the inspector is reused).  ``check_spd`` (default):
-        raise :class:`NotPositiveDefiniteError` when a pivot was not
-        positive (one device-side reduction, one scalar fetch)."""
+        pattern (the inspector is reused).  It runs the executor's
+        captured ``factorize`` program; ``self.lx`` holds pools that no
+        later factorize overwrites.  ``check_spd`` (default): raise
+        :class:`NotPositiveDefiniteError` when a pivot was not positive
+        (one device-side reduction, one scalar fetch)."""
         data = self.ap.data if a is None else a.permute(self.perm).data
         self.lx = self.executor.factorize(data)
         self._spd_ok = None
@@ -128,7 +130,8 @@ class CholeskySolver:
 
     def solve(self, b: np.ndarray) -> np.ndarray:
         """x = A^{-1} b (factorize() must have run), with
-        ``config.refine_steps`` sweeps of iterative refinement."""
+        ``config.refine_steps`` sweeps of iterative refinement; each solve
+        runs the executor's captured ``solve_spd`` program."""
         if self.lx is None:
             raise RuntimeError("call factorize() first")
         b = np.asarray(b)

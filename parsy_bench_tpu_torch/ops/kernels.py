@@ -3,7 +3,10 @@
 Counterpart of ``parsy_bench_tpu/ops/pallas_kernels.py``.  Each wrapper
 checks its inputs, allocates the outputs with ``torch.empty``, launches
 its kernel on the current CUDA stream, raises if the launch failed, and
-adds one to its plain-integer ``launches`` count.  It takes CUDA tensors
+adds one to its plain-integer ``launches`` count.  Inside a
+``torch.cuda.graph`` capture (``ops/graphs.py``) the launch goes into the
+graph and is counted once, at capture: a program's count is its
+launches per replay, and replays advance no count.  It takes CUDA tensors
 only: the plain versions (``ops/dense.py``, ``probes.py``) serve CPU
 tensors, and the callers choose between the two
 (``ops/supernodal.chol_inverse`` and ``finalize_fused``, the ``probe_*``
@@ -254,3 +257,19 @@ def probe_gather_cuda(pool8: torch.Tensor, idx: torch.Tensor, per: int):
 
 
 probe_gather_cuda.launches = 0
+
+#: the counted wrappers, by module attribute (so that a stand-in bound to
+#: the same name is counted too)
+_WRAPPERS = ("cholesky_inverse_cuda", "finalize_fused_cuda",
+             "probe_copy_cuda", "probe_matmul_cuda", "probe_gather_cuda")
+
+
+def launch_counts() -> dict:
+    """Each wrapper's ``launches`` count, by wrapper name."""
+    return {name: globals()[name].launches for name in _WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    """Set every wrapper's ``launches`` count to 0."""
+    for name in _WRAPPERS:
+        globals()[name].launches = 0

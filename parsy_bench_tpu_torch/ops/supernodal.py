@@ -22,7 +22,20 @@ Counterpart of ``parsy_bench_tpu/ops/supernodal.py`` on the same
   class (reference: H2LeveledBlockedLsolve, Triangular_BCSC.h:171);
 * ``solve_upper`` / ``solve_spd`` — leveled blocked solves over the same
   wavefront schedule (``solve_spd`` runs the leveled forward solve, as the
-  JAX executor's does).
+  JAX executor's does);
+* ``factorize_segmented``, ``factorize_loop``, ``solve_loop`` and
+  ``profile_segments`` — the JAX executor's benchmark entry points.
+
+Every entry point that the JAX executor compiles runs here as captured
+programs (``ops/graphs.py``): closures over static tensors (the A values
+in, the pools, the Linv pools, b and x), captured as CUDA graphs at their
+first call on the card and replayed after; on the CPU the same closures
+run.  Inputs are copied into the static tensors outside the programs, and
+results leave as clones, so that no later call overwrites what a caller
+holds (the JAX package returns new arrays from every call).  Each graph
+belongs to one plan: the per-step host scalars are constants of its
+capture.  ``_factorize_eager`` runs the step loop op by op on fresh pools;
+it is the reference the programs are held against on the card.
 
 Pools keep the JAX package's packed layout, per width class c a
 (R/8, 8c) tensor with the linear element order of (R, c), so they compare
@@ -52,7 +65,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from parsy_bench_tpu_torch.ops import dense, kernels
+from parsy_bench_tpu_torch.ops import dense, graphs, kernels
 from parsy_bench_tpu_torch.symbolic.splan import SupernodalPlan, SupSegment
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -222,7 +235,28 @@ class SupernodalExecutor:
             and all(seg.srlo is not None for seg in plan.segments))
         if self._has_fast_solve:
             self._ingest_solve()
-        self._solve_prep_cache = None
+        # the static tensors of the programs, allocated once, outside any
+        # capture
+        dev, dt = self.device, self.dtype
+        self._a_in = torch.zeros(self._nnz_a, dtype=dt, device=dev)
+        self._pools = tuple(
+            torch.zeros((r // 8, 8 * c), dtype=dt, device=dev)
+            for r, c in zip(self._nrows, self.classes))
+        self._linv = (tuple(torch.zeros((n, c, c), dtype=dt, device=dev)
+                            for n, c in zip(self._npanels, self.classes))
+                      if self._has_fast_solve else ())
+        self._b_in = torch.zeros(plan.n, dtype=dt, device=dev)
+        self._x_out = torch.zeros(plan.n, dtype=dt, device=dev)
+        #: "pools" / "linv" -> (the tensors the static ones hold, their
+        #: version counters then); a replay bumps no counter, so each
+        #: program that writes a static tensor resets its entry.  "prep":
+        #: the pools whose Linv pools ``solve_prep`` returned last
+        #: (``_prep_linv``)
+        self._held = {}
+        self._prep_linv = None
+        self._graph_pool = graphs.graph_pool(dev)
+        #: name -> ``graphs.Program``, made at first use
+        self.programs = {}
 
     # ----------------------------------------------------------- tables
     def _up(self, arr, dtype=torch.int32):
@@ -458,19 +492,91 @@ class SupernodalExecutor:
         view (bounds checked at construction)."""
         return pool.view(-1, self.classes[ci])[start:start + rows]
 
-    def _init_pools(self, a_data):
-        """Scatter A values into zeroed per-class packed pools."""
-        if a_data.shape != (self._nnz_a,):
+    def _check_a(self, a_data):
+        """``a_data`` as a tensor (where it lies), after its length check."""
+        a = torch.as_tensor(a_data)
+        if a.shape != (self._nnz_a,):
             raise ValueError(f"expected {self._nnz_a} A values, got "
-                             f"{tuple(a_data.shape)}")
-        pools = []
-        for ci, c in enumerate(self.classes):
-            r = self._nrows[ci]
+                             f"{tuple(a.shape)}")
+        return a
+
+    def _init_pools(self, a, pools):
+        """Zero the per-class packed pools and scatter A values into
+        them."""
+        for ci, p in enumerate(pools):
             pos, sel = self._a_map[ci]
-            flat = torch.zeros(r * c, dtype=self.dtype, device=self.device)
-            flat.index_add_(0, pos, a_data[sel])
-            pools.append(flat.view(r // 8, 8 * c))
-        return pools
+            flat = p.view(-1)
+            flat.zero_()
+            flat.index_add_(0, pos, a[sel])
+
+    # ---------------------------------------------------------- programs
+    def _program(self, name, fn) -> graphs.Program:
+        """The program ``name``, made from the closure ``fn`` at first
+        use."""
+        prog = self.programs.get(name)
+        if prog is None:
+            prog = graphs.Program(name, fn, self.device, self._graph_pool)
+            self.programs[name] = prog
+        return prog
+
+    def _hold(self, name, tensors):
+        self._held[name] = (tuple(tensors),
+                            tuple(t._version for t in tensors))
+
+    def _holds(self, name, tensors) -> bool:
+        held = self._held.get(name)
+        return (held is not None and len(held[0]) == len(tensors)
+                and all(p is q for p, q in zip(held[0], tensors))
+                and held[1] == tuple(t._version for t in tensors))
+
+    def _load(self, name, static, tensors):
+        """Copy ``tensors`` into the static tensors of the programs unless
+        they hold them already (the same tensors at the same version
+        counters)."""
+        tensors = tuple(tensors)
+        if self._holds(name, tensors):
+            return
+        if (len(tensors) != len(static)
+                or any(t.shape != s.shape for s, t in zip(static, tensors))):
+            raise ValueError(
+                f"expected {name} of shapes "
+                f"{[tuple(s.shape) for s in static]}, got "
+                f"{[tuple(t.shape) for t in tensors]}")
+        for s, t in zip(static, tensors):
+            s.copy_(t)
+        self._hold(name, tensors)
+
+    def _pools_out(self):
+        """Clones of the static pools, which the next program overwrites;
+        the static pools then hold them."""
+        out = tuple(p.clone() for p in self._pools)
+        self._hold("pools", out)
+        return out
+
+    def group_bounds(self, group: int) -> list:
+        """The (first, end) segments of ``factorize_segmented``'s programs:
+        the JAX executor's ``range(0, nseg, group)``."""
+        group = int(group)
+        if group < 1:
+            raise ValueError(f"group {group} < 1")
+        nseg = len(self.plan.segments)
+        return [(lo, min(lo + group, nseg)) for lo in range(0, nseg, group)]
+
+    def _chain(self, lo, hi, init=False):
+        """Closure: with ``init`` the A values scattered into the zeroed
+        static pools, then every level step of segments [lo, hi) on
+        them."""
+        def run():
+            if init:
+                self._init_pools(self._a_in, self._pools)
+            for seg, tabs in zip(self.plan.segments[lo:hi],
+                                 self._segs[lo:hi]):
+                for t in range(seg.nsteps):
+                    self._step(self._pools, seg, tabs, t)
+        return run
+
+    def _segments_program(self, lo, hi):
+        return self._program(f"segments[{lo}:{hi}]", self._chain(lo, hi))
 
     # ----------------------------------------------------------- updates
     def _update_block(self, pools, b, ut: _UpdTables, t):
@@ -579,15 +685,63 @@ class SupernodalExecutor:
         self._apply_updates(pools, wins, seg, tabs, t)
         self._finalize(wins, seg, tabs, t)
 
+    def _load_a(self, a_data):
+        """Copy the A values into the static input, outside any program:
+        host to device from numpy, device to device from a CUDA tensor."""
+        self._a_in.copy_(self._check_a(a_data))
+
     def factorize(self, a_data):
-        """Numeric supernodal Cholesky: A values (permuted lower CSC data)
-        -> per-class packed panel pools (a tuple of device tensors)."""
-        a = torch.as_tensor(a_data).to(device=self.device, dtype=self.dtype)
-        pools = self._init_pools(a)
+        """Numeric supernodal Cholesky: A values (permuted lower CSC data,
+        numpy or a tensor) -> per-class packed panel pools (a tuple of
+        tensors on the executor's device).  The counterpart of the JAX
+        executor's ``_factorize`` jit: one program runs every segment, and
+        the pools it leaves are returned as clones, which no later call
+        overwrites."""
+        return self.factorize_loop(a_data, 1)
+
+    def _factorize_eager(self, a_data):
+        """``factorize`` run op by op on fresh pools, outside the programs
+        and their static tensors: the reference they are held against."""
+        a = self._check_a(a_data).to(device=self.device, dtype=self.dtype)
+        pools = tuple(torch.empty((r // 8, 8 * c), dtype=self.dtype,
+                                  device=self.device)
+                      for r, c in zip(self._nrows, self.classes))
+        self._init_pools(a, pools)
         for seg, tabs in zip(self.plan.segments, self._segs):
             for t in range(seg.nsteps):
                 self._step(pools, seg, tabs, t)
-        return tuple(pools)
+        return pools
+
+    def factorize_segmented(self, a_data, group: int = 8):
+        """``factorize`` as one program per ``group`` consecutive segments
+        (``group_bounds``) after one that scatters the A values, updating
+        the static pools in place (the JAX executor donates them).  The
+        counterpart of the JAX ``factorize_segmented``; the programs are
+        kept per segment range, so each grouping captures once.  JAX's
+        ``cache_dir`` (a cache of compiled TPU executables) has no
+        counterpart."""
+        bounds = self.group_bounds(group)
+        self._load_a(a_data)
+        self._program("init", self._chain(0, 0, init=True)).run()
+        for lo, hi in bounds:
+            self._segments_program(lo, hi).run()
+        return self._pools_out()
+
+    def factorize_loop(self, a_data, iters: int):
+        """``iters`` runs of ``factorize``'s program with no host sync in
+        between; returns the last pools.  The counterpart of the JAX
+        ``factorize_loop``, whose fold-proof select only keeps XLA from
+        collapsing the loop: a replayed graph is not simplified, so there
+        is none here."""
+        iters = int(iters)
+        if iters < 1:
+            raise ValueError(f"iters {iters} < 1")
+        self._load_a(a_data)
+        prog = self._program("factorize",
+                             self._chain(0, len(self._segs), init=True))
+        for _ in range(iters):
+            prog.run()
+        return self._pools_out()
 
     # ------------------------------------------------------------ solves
     def _panel_blk(self, pools, b, ft, rlo, t):
@@ -611,12 +765,15 @@ class SupernodalExecutor:
         dinv = torch.where(valid, 1.0 / torch.where(valid, dvec, 1.0), 0.0)
         return strict + torch.diag_embed(dinv)
 
-    def _vec(self, b):
-        b = torch.as_tensor(b).to(device=self.device, dtype=self.dtype)
+    def _check_vec(self, b):
+        b = torch.as_tensor(b)
         if b.shape != (self.plan.n,):
             raise ValueError(f"expected a vector of {self.plan.n}, got "
                              f"{tuple(b.shape)}")
         return b
+
+    def _vec(self, b):
+        return self._check_vec(b).to(device=self.device, dtype=self.dtype)
 
     def _solve_lower_impl(self, pools, b_vec):
         """Forward substitution over the wavefront schedule."""
@@ -646,10 +803,12 @@ class SupernodalExecutor:
                     ridx = torch.where(below, ft.rows[t], n)
                     dbc.index_add_(0, ridx.reshape(-1),
                                    (-(y * below)).reshape(-1))
+                # the pad slot n is cleared by a fill: an element set
+                # copies a host scalar, which a capture refuses
                 x = x + dx
-                x[n] = 0
+                x[n:].zero_()
                 bc = bc + dbc
-                bc[n] = 0
+                bc[n:].zero_()
         return x[:n]
 
     def _solve_upper_impl(self, pools, b_vec):
@@ -679,17 +838,22 @@ class SupernodalExecutor:
                     dx.index_add_(0, torch.where(colv, cidx, n).reshape(-1),
                                   xs_.masked_fill(~colv, 0).reshape(-1))
                 x = x + dx
-                x[n] = 0
+                x[n:].zero_()
         return x[:n]
 
-    def _linv_pools(self, pools):
+    def _linv_pools(self, pools, linv=None):
         """Slot-ordered per-class pools of diag-block inverses:
         linv[ci][slot] = Linv of the panel at that slot, so that every
         step of the fast solve takes one contiguous slice and one batched
-        product per class."""
-        linv = [torch.zeros((self._npanels[ci], c, c), dtype=self.dtype,
-                            device=self.device)
-                for ci, c in enumerate(self.classes)]
+        product per class.  Built in ``linv`` (zeroed first) when given,
+        else in new tensors."""
+        if linv is None:
+            linv = [torch.zeros((self._npanels[ci], c, c), dtype=self.dtype,
+                                device=self.device)
+                    for ci, c in enumerate(self.classes)]
+        else:
+            for x in linv:
+                x.zero_()
         for seg, tabs, st in zip(self.plan.segments, self._segs,
                                  self._ssegs):
             for t in range(seg.nsteps):
@@ -704,17 +868,20 @@ class SupernodalExecutor:
 
     def solve_prep(self, pools):
         """The slot-ordered Linv pools of the fast forward solve, built
-        once per factorization.  Cached on the pools' identity and their
-        version counters, so new pools or pools changed in place rebuild
-        it."""
-        key = tuple(p._version for p in pools)
-        hit = self._solve_prep_cache
-        if (hit is not None and len(hit[0]) == len(pools)
-                and all(p is q for p, q in zip(hit[0], pools))
-                and hit[1] == key):
-            return hit[2]
-        linv = self._linv_pools(pools)
-        self._solve_prep_cache = (tuple(pools), key, linv)
+        once per factorization by one program (the counterpart of the JAX
+        ``_linv_pools_j``) and returned as clones, so that each factor
+        keeps its own.  Cached on the pools' identity and their version
+        counters, so new pools or pools changed in place rebuild it."""
+        pools = tuple(pools)
+        if self._holds("prep", pools):
+            return self._prep_linv
+        self._load("pools", self._pools, pools)
+        self._program("linv", lambda: self._linv_pools(
+            self._pools, self._linv)).run()
+        linv = tuple(x.clone() for x in self._linv)
+        self._hold("linv", linv)
+        self._hold("prep", pools)
+        self._prep_linv = linv
         return linv
 
     def _solve_lower_fast_impl(self, pools, b_vec, linv):
@@ -776,25 +943,109 @@ class SupernodalExecutor:
             out[sel] = xb[ci].reshape(-1)[pos]
         return out
 
+    def _solve(self, name, pools, b, iters=1):
+        """Run the solve program ``name`` ``iters`` times on ``pools`` and
+        ``b`` (copied into the static tensors unless they hold them) and
+        return a clone of its x."""
+        if name == "solve_lower_fast":
+            self._load("linv", self._linv, self.solve_prep(pools))
+        self._load("pools", self._pools, pools)
+        self._b_in.copy_(self._check_vec(b))
+        P, bv = self._pools, self._b_in
+        impl = {
+            "solve_lower_fast": lambda: self._solve_lower_fast_impl(
+                P, bv, self._linv),
+            "solve_lower": lambda: self._solve_lower_impl(P, bv),
+            "solve_upper": lambda: self._solve_upper_impl(P, bv),
+            "solve_spd": lambda: self._solve_upper_impl(
+                P, self._solve_lower_impl(P, bv)),
+        }[name]
+        prog = self._program(name, lambda: self._x_out.copy_(impl()))
+        for _ in range(iters):
+            prog.run()
+        return self._x_out.clone()
+
+    def _lower_name(self):
+        return ("solve_lower_fast" if self._has_fast_solve
+                else "solve_lower")
+
     def solve_lower(self, pools, b):
         """x = L^{-1} b (forward substitution, level-parallel): the
         pair-granular fast solve when the plan carries its tables (after
-        ``solve_prep``), else the leveled one."""
-        b = self._vec(b)
-        if self._has_fast_solve:
-            return self._solve_lower_fast_impl(pools, b,
-                                               self.solve_prep(pools))
-        return self._solve_lower_impl(pools, b)
+        ``solve_prep``), else the leveled one.  One program, as each
+        solve below."""
+        return self._solve(self._lower_name(), pools, b)
 
     def solve_upper(self, pools, b):
         """x = L^{-T} b (backward substitution)."""
-        return self._solve_upper_impl(pools, self._vec(b))
+        return self._solve("solve_upper", pools, b)
 
     def solve_spd(self, pools, b):
         """x = (L L^T)^{-1} b, through the leveled forward solve (as the
         JAX executor's ``solve_spd``)."""
-        return self._solve_upper_impl(
-            pools, self._solve_lower_impl(pools, self._vec(b)))
+        return self._solve("solve_spd", pools, b)
+
+    def solve_loop(self, pools, b, iters: int):
+        """``solve_prep`` once, then ``iters`` runs of the forward solve's
+        program (the fast one when the plan has its tables, else the
+        leveled one) with no host sync in between; returns the last x.
+        The counterpart of the JAX ``solve_loop`` without its fold-proof
+        select (see ``factorize_loop``) and its ``cache_dir``."""
+        iters = int(iters)
+        if iters < 1:
+            raise ValueError(f"iters {iters} < 1")
+        return self._solve(self._lower_name(), pools, b, iters)
+
+    # --------------------------------------------------------- profiling
+    def profile_segments(self, a_data, iters: int = 3,
+                         reps: int = 20) -> list[dict]:
+        """Per-segment times, the counterpart of the JAX
+        ``profile_segments`` (reference: the instrumented executors behind
+        TIMING/ANALYZE_THEORY, Cholesky_Perf_Modeling.h:29), on
+        ``factorize_segmented``'s programs at ``group=1``.
+
+        Segment i is timed on pools factored through segment i-1: the
+        static pools are restored from a copy of that state, its program
+        runs ``reps`` times back to back (each run after the first applies
+        the segment again to its own output, the same work, as JAX's
+        ``run_reps`` does), ``iters`` times; then one run from the restored
+        state advances the copy.  ``median_s`` is per run: device time
+        between CUDA events on the card, host time on the CPU."""
+        iters, reps = int(iters), int(reps)
+        if iters < 1 or reps < 1:
+            raise ValueError(f"iters {iters} and reps {reps} must be >= 1")
+        self._load_a(a_data)
+        self._program("init", self._chain(0, 0, init=True)).run()
+        self._held.pop("pools", None)
+        state = [p.clone() for p in self._pools]
+
+        def restore():
+            for p, s in zip(self._pools, state):
+                p.copy_(s)
+
+        def run_reps():
+            for _ in range(reps):
+                prog.run()
+        out = []
+        for lo, hi in self.group_bounds(1):
+            seg = self.plan.segments[lo]
+            prog = self._segments_program(lo, hi)
+            restore()
+            prog.run()                     # warm: the capture at first use
+            times = []
+            for _ in range(iters):
+                restore()
+                times.append(graphs.elapsed_s(self.device, run_reps))
+            restore()
+            prog.run()
+            for s, p in zip(state, self._pools):
+                s.copy_(p)
+            out.append({"segment": lo, "steps": seg.nsteps,
+                        "upd_buckets": len(seg.upd),
+                        "fin_buckets": len(seg.fin),
+                        "wslice": list(seg.wslice),
+                        "median_s": sorted(times)[len(times) // 2] / reps})
+        return out
 
     # ------------------------------------------------------------ export
     def factor_values(self, pools):

@@ -1,0 +1,188 @@
+#!/usr/bin/env python3
+"""Rehearse ``chip_smoke.py`` on the CPU, before a call to the card:
+
+    python tools/smoke_rehearsal.py
+
+It runs chip_smoke.py's own ``main`` on small matrices, with every device
+string turned to ``"cpu"`` and these stand-ins:
+
+* the kernel wrappers of ``ops/kernels.py`` are their plain versions,
+  counted as the wrappers count;
+* ``graphs.Program.run`` acts out a capture: the first run calls the
+  closure (the warm-up) and counts its launches once more (the capture's),
+  later runs call it without counting (replays), so that the launch-count
+  checks see what they see on the card;
+* ``torch.cuda``'s queries, memory statistics, events and sleep, the card
+  line (nvidia-smi), the kernel build and ``torch.profiler`` (whose CUDA
+  activity on a CPU-only torch takes minutes and prints errors) answer
+  with placeholders; the profiler stand-in counts the kernels each call
+  runs, replays included;
+* every device asked for resolves to the CPU;
+* the plan-shape checks print instead of raising, and the kernel shapes
+  of phases 3 and 7 are cut to the small plan's.
+
+Every number it prints is a placeholder or a CPU time: it shows that the
+script runs through, not how fast anything is.
+"""
+from __future__ import annotations
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.modules["jax"] = None
+
+import torch  # noqa: E402
+
+from parsy_bench_tpu_torch import CholeskySolver, SolverConfig, probes  # noqa
+from parsy_bench_tpu_torch.core import generate  # noqa: E402
+from parsy_bench_tpu_torch.ops import (build, dense, graphs,  # noqa: E402
+                                       kernels, supernodal)
+
+#: kernel runs, replays included (what a profiler would see)
+EXECUTED = {name: 0 for name in kernels._WRAPPERS}
+REPLAYING = [False]
+
+
+def _counted(name, plain):
+    def wrapper(*args, **kw):
+        EXECUTED[name] += 1
+        if not REPLAYING[0]:
+            wrapper.launches += 1
+        return plain(*args, **kw)
+    wrapper.launches = 0
+    wrapper.__name__ = name
+    setattr(kernels, name, wrapper)
+    return wrapper
+
+
+def _stub_kernels():
+    k1 = _counted("cholesky_inverse_cuda", dense.cholesky_inverse)
+    k2 = _counted("finalize_fused_cuda",
+                  lambda blk, w, cnt, nchunk=None:
+                  dense.finalize_fused(blk, w, cnt))
+    _counted("probe_copy_cuda", probes.copy_plain)
+    _counted("probe_matmul_cuda", probes.matmul_plain)
+    _counted("probe_gather_cuda", probes.gather_plain)
+    supernodal.chol_inverse = k1
+    supernodal.finalize_fused = k2
+    build.build = lambda: "(kernels not built: CPU rehearsal)"
+    build.build_log = lambda so: ""
+    kernels._load = lambda: None
+
+
+def _program_run(self):
+    if self.launches is None:
+        before = kernels.launch_counts()
+        self.fn()
+        self.launches = graphs._delta(before)
+        for name, n in self.launches.items():
+            getattr(kernels, name).launches += n
+        self.capture_s, self.nodes = 0.0, 0
+    else:
+        REPLAYING[0] = True
+        try:
+            self.fn()
+        finally:
+            REPLAYING[0] = False
+
+
+class _Event:
+    def __init__(self, *a, **kw):
+        pass
+
+    def record(self, *a):
+        pass
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 1.0
+
+
+def _stub_cuda():
+    c = torch.cuda
+    c.is_available = lambda: True
+    c.synchronize = lambda *a: None
+    c.get_device_name = lambda *a: "CPU rehearsal"
+    c.device_count = lambda: 1
+    c.reset_peak_memory_stats = lambda *a: None
+    c.max_memory_allocated = lambda *a: 0
+    c.memory_allocated = lambda *a: 0
+    c.memory_reserved = lambda *a: 0
+    c.Event = _Event
+    c._sleep = lambda *a: None
+    graphs.Program.run = _program_run
+    # entry points called without a device ask for the card
+    from parsy_bench_tpu_torch.models import solver
+    solver.resolve_device = supernodal.resolve_device = (
+        lambda device: torch.device("cpu"))
+
+
+def _cuda_ms(fn, reps, *a, **kw):
+    fn()
+    return 1.0
+
+
+def _stub_probes():
+    probes.cuda_ms = _cuda_ms
+    probes.cuda_ms_cold = _cuda_ms
+    probes.ROWS, probes.HBM_ROWS, probes.NIDX = 1 << 12, 1 << 13, 1 << 10
+
+    def run(device="cuda"):
+        cpu = torch.device("cpu")
+        return [probes._copy_record(cpu), probes._matmul_record(cpu),
+                probes._gather_record(cpu, probes.ROWS, cold=False),
+                probes._gather_record(cpu, probes.HBM_ROWS, cold=True)]
+    probes.run = run
+
+
+def _device_ops(torch, fn, kernel=()):
+    fn()
+    before = dict(EXECUTED)
+    fn()
+    ran = {k: EXECUTED[k] - before[k] for k in EXECUTED}
+    n = (ran["cholesky_inverse_cuda"] if "chol_inverse_warp_kernel" in kernel
+         else ran["finalize_fused_cuda"] if kernel else 0)
+    return dict(ops=1, busy_ms=1.0, span_ms=1.0, wall_ms=2.0,
+                idle_share_of_span=0.0, idle_share_of_wall=0.5,
+                k_n=n, k_ms=1.0)
+
+
+def main() -> int:
+    _stub_kernels()
+    _stub_cuda()
+    _stub_probes()
+    path = os.path.join(ROOT, "chip_smoke.py")
+    with open(path) as f:
+        src = f.read()
+    for old, new in (('"cuda"', '"cpu"'),
+                     ("laplace_3d(48)", "laplace_3d(10)"),
+                     ("laplace_3d(24)", "laplace_3d(6)"),
+                     ('raise AssertionError(f"plan\'s', 'print(f"plan\'s')):
+        if old not in src:
+            raise AssertionError(f"chip_smoke.py no longer holds {old!r}")
+        src = src.replace(old, new)
+    ns = {"__name__": "chip_smoke_rehearsal", "__file__": path}
+    exec(compile(src, path, "exec"), ns)
+    ns["_card"] = lambda: "CPU rehearsal, no card"
+    ns["_device_ops"] = _device_ops
+    # the kernel shapes of phases 3 and 7, cut to the small plan's
+    s = CholeskySolver(generate.laplace_3d(10),
+                       SolverConfig(ordering="nd", dtype="float32",
+                                    tier="supernodal"), device="cpu")
+    exf = supernodal.SupernodalExecutor(s.plan, "float32", "cpu",
+                                        fused_finalize=True)
+    fshapes = {(seg.fin[k].P, seg.fin[k].H, seg.fin[k].c)
+               for seg, tabs in zip(s.plan.segments, exf._segs)
+               for ks in tabs.fin_fused for k in ks}
+    ns["K1_SHAPES"] = tuple(sorted(s.executor.chol_batch_shapes()))[:5]
+    ns["K1_SMALL"] = ((3, 8), (3, 48))
+    ns["K2_SHAPES"] = (max(fshapes), (4, 64, 32), (1, 96, 32), (3, 64, 64))
+    return ns["main"]()
+
+
+if __name__ == "__main__":
+    sys.exit(main())
