@@ -86,7 +86,30 @@ Phases, each of which raises on failure (nothing is caught):
    mode "sum" (P3, checked against the plain gather) timed at the same
    shapes; P3 and ``embedding_bag`` once more on the 256 MB pool, L2
    flushed before each call, in 12 interleaved pairs (P3, bag, bag, P3,
-   ...), with the medians and the spread of each.
+   ...), with the medians and the spread of each;
+11. the scatter update mode at n = 110,592: a second ``CholeskySolver``
+   with ``update_delta="scatter"`` (its own analyze); K1 counted as in
+   phase 4; the captured ``factorize`` within 1e-6 of the pool scale of
+   ``_factorize_eager`` (atomics: not bit-equal); phase 4's gates; the
+   capture seconds, the replay median and the device busy ms;
+12. ``TriangularSolver`` at n = 110,592 on phase 4's factor (f32):
+   supernodal, wavefront and coarsened, each with its analyze seconds,
+   levels or steps, table MB (and ``prepare_solve_pools``' seconds),
+   capture seconds and nodes, the ``solve`` and ``solve_transposed``
+   medians of 5 after the first call, nnz/s, device operations, busy ms
+   and the heaviest operations by name (torch.profiler), and the gates
+   |1 - x_i| < 1e-3 with b = L*1 and b = L^T*1; "auto"'s pick; both
+   pruned solvers on three RHS rows (reach, times, agreement with the
+   full solve within 1e-5 of its scale).  No hand-written kernel lies on
+   this path: every launch count stays 0;
+13. the same, wavefront and coarsened, on a non-chordal L: the lower half
+   of A;
+14. ``CholeskySolver(tier="simplicial")`` at laplace_3d(SIMPLICIAL_GRID)
+   (n = 8,000, 97.0M update triples), ND, f32: the factorize median of
+   5, two factorizations within 1e-6 of their scale, the factor residual
+   < 1e-3 and the solve residual < 1e-3;
+15. the CLI (``CLI_RUNS``) as subprocesses on the card: each must exit 0
+   and verify.
 
 Output: JSON lines of each phase's numbers, the card line, one JSON line
 ``{"kernels": [...]}`` (K1, K2, P1, P2, P3, each with the launches of its
@@ -114,6 +137,17 @@ K1_SMALL = ((6, 8), (6, 16), (6, 48), (6, 64), (6, 96), (6, 112))
 #: against the plan below), and one c = 128 shape, a class the executor
 #: leaves to K1
 K2_SHAPES = ((27456, 32, 32), (640, 128, 32), (1, 4096, 32), (64, 128, 128))
+#: the simplicial factorization's grid, laplace_3d(SIMPLICIAL_GRID): its
+#: update tables hold one index triple per update (97.0M at 20 under ND;
+#: 20.1e9 at 48, which no host holds)
+SIMPLICIAL_GRID = 20
+#: the CLI runs as subprocesses (``python -m parsy_bench_tpu_torch.cli``);
+#: each must exit 0 and verify.  ``--tier simplicial`` makes the last one
+#: run the coarsened schedule (the supernodal tier has no schedule)
+CLI_RUNS = (("cholesky", "gen:laplace3d:24", "--verify"),
+            ("trisolve", "gen:laplace3d:20"),
+            ("trisolve", "gen:laplace3d:48", "--lower", "--tier",
+             "simplicial", "--schedule", "coarsened"))
 #: the kernels' names as torch.profiler shows them (csrc/chol_inverse.cu,
 #: csrc/finalize_fused.cu)
 K1_NAMES = ("chol_inverse_warp_kernel", "chol_inverse_blocked_kernel")
@@ -301,16 +335,17 @@ def _check_k2(torch, dense, kernels, P, H, c, gen, w=None, cnt=None,
                 bound_share=bound_ms / ms, bytes=nbytes, flops=flops)
 
 
-def _device_ops(torch, fn, kernel=()):
+def _device_ops(torch, fn, kernel=(), top=0):
     """One call under torch.profiler, after one unprofiled call: its
     device operations (``ops``), their summed device ms (``busy_ms``), the
     ms from the first one's start to the last one's end (``span_ms``), the
     host ms around the synchronized call (``wall_ms``, profiler overhead
     included) and the idle share of the span and of the wall; with
     ``kernel`` (names), also the launches (``k_n``) and device ms
-    (``k_ms``) of the operations whose name holds one of those strings.
-    Raises where the profile holds no device time, or none for
-    ``kernel``."""
+    (``k_ms``) of the operations whose name holds one of those strings;
+    with ``top``, the ``top`` operation names of the most device time
+    (``by_name``: name, launches, ms).  Raises where the profile holds no
+    device time, or none for ``kernel``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -340,6 +375,13 @@ def _device_ops(torch, fn, kernel=()):
             raise AssertionError(f"torch.profiler recorded no device time "
                                  f"for kernels named {kernel}")
         out.update(k_n=len(mine), k_ms=us(mine) / 1e3)
+    if top:
+        names = {}
+        for e in evs:
+            names.setdefault(e.name, []).append(e)
+        out["by_name"] = sorted(
+            ([k[:90], len(v), us(v) / 1e3] for k, v in names.items()),
+            key=lambda r: -r[2])[:top]
     return out
 
 
@@ -526,6 +568,231 @@ def _interleaved(probes, a, b, flush, pairs=12, reps=5):
                 pairs=pairs, calls_per_sample=reps)
 
 
+def _scatter_phase(torch, np, kernels, a, cfg, card):
+    """Phase 11 (the module docstring): the scatter update mode at the
+    main path's size, its own analyze and captured ``factorize``."""
+    from parsy_bench_tpu_torch import CholeskySolver
+    scfg = cfg.replace(update_delta="scatter")
+    t0 = time.perf_counter()
+    solver = CholeskySolver(a, scfg)
+    analyze_s = time.perf_counter() - t0
+    ex = solver.executor
+    if any(seg.gsc is not None for seg in solver.plan.segments):
+        raise AssertionError("the scatter plan carries gather tables")
+    expected = ex.chol_calls_per_factorize
+    kernels.reset_launch_counts()
+    warm_s, _ = _sync_s(torch, solver.factorize)
+    prog = ex.programs["factorize"]
+    times = sorted(_sync_s(torch, solver.factorize)[0] for _ in range(5))
+    launches = kernels.cholesky_inverse_cuda.launches
+    k1_per_replay = prog.launches["cholesky_inverse_cuda"]
+    if (launches, k1_per_replay) != (2 * expected, expected):
+        raise AssertionError(f"scatter mode: K1 counted {launches} launches "
+                             f"and {k1_per_replay} in the capture; the plan "
+                             f"implies {2 * expected} and {expected}")
+    if not solver.factor_ok():
+        raise AssertionError("scatter mode: factor has non-finite entries")
+    data = solver.ap.data
+    eager = ex._factorize_eager(data)
+    pscale = max(float(p.abs().max()) for p in eager)
+    diff = max(float((p - q).abs().max()) for p, q in zip(solver.lx, eager))
+    if not diff <= 1e-6 * pscale:
+        raise AssertionError(f"scatter mode: the captured factorize differs "
+                             f"from _factorize_eager by {diff:.3e} > 1e-6 * "
+                             f"{pscale:.3e}")
+    bit = all(torch.equal(p, q) for p, q in zip(solver.lx, eager))
+    b_l = _l_ones(np, ex, solver, solver.lx)
+    err = float((ex.solve_lower(solver.lx, b_l) - 1).abs().max())
+    if not err < 1e-3:
+        raise AssertionError(f"scatter mode: solve_lower with b = L*1: "
+                             f"max|1 - x| {err:.3e}")
+    b = a.spd_rhs_for_ones()
+    res = solver.solve_residual(b, solver.solve(b))
+    if not res < 1e-3:
+        raise AssertionError(f"scatter mode: solve(A*1) residual {res:.3e}")
+    prof = _device_ops(torch, lambda: ex.factorize(data), K1_NAMES)
+    med = times[2]
+    return dict(
+        update_delta=scfg.update_delta, n=int(a.n), analyze_s=analyze_s,
+        chol_calls_per_factorize=expected, table_mb=ex.table_bytes / 1e6,
+        warm_factorize_s=warm_s, capture_s=prog.capture_s,
+        graph_nodes=prog.nodes, factorize_s_min_med_max=[times[0], med,
+                                                         times[-1]],
+        gflops=solver.plan.flops / med / 1e9,
+        k1_launches_run=launches, k1_launches_per_replay=k1_per_replay,
+        k1_profiled_launches_per_replay=prof["k_n"],
+        device_ops=prof["ops"], device_busy_ms=prof["busy_ms"],
+        idle_share_of_median_wall=1 - prof["busy_ms"] / (med * 1e3),
+        captured_vs_eager_max_abs_diff=diff, captured_vs_eager_bit_equal=bit,
+        pool_scale=pscale, solve_lower_max_err=err, solve_rel_residual=res,
+        card=card)
+
+
+def _trisolve(torch, np, name, l, cfg, card):
+    """One ``TriangularSolver`` on the card (phases 12 and 13): analyze,
+    the first ``solve`` and ``solve_transposed`` (their captures), five of
+    each timed, the gates with b = L*1 and b = L^T*1, and one forward and
+    one backward solve under torch.profiler.  Returns (record, solver)."""
+    from parsy_bench_tpu_torch import TriangularSolver
+    t0 = time.perf_counter()
+    ts = TriangularSolver(l, cfg)
+    torch.cuda.synchronize()
+    analyze_s = time.perf_counter() - t0
+    ex = ts.executor
+    m = l.to_scipy()
+    b = np.asarray(m @ np.ones(l.n))
+    bt = np.asarray(m.T @ np.ones(l.n))
+    rec = dict(variant=name, tier=cfg.tier,
+               schedule=getattr(ts, "schedule", cfg.tier), dtype=cfg.dtype,
+               n=int(l.n), nnz_l=int(l.nnz), nlev=int(ts.nlev),
+               steps=int(getattr(ts.plan, "nsteps", ts.nlev)),
+               analyze_s=analyze_s, table_mb=ex.table_bytes / 1e6)
+    if cfg.tier == "supernodal":
+        raw = ex.init_pools(l.data)
+        rec["prepare_solve_capture_s"] = ex.programs["prepare_solve"].capture_s
+        rec["prepare_solve_nodes"] = ex.programs["prepare_solve"].nodes
+        rec["prepare_solve_s"] = min(
+            _sync_s(torch, lambda: ex.prepare_solve_pools(raw))[0]
+            for _ in range(3))
+        rec["pool_mb"] = sum(p.numel() for p in raw) * raw[0].element_size() \
+            / 1e6
+    for fn, rhs in (("solve", b), ("solve_transposed", bt)):
+        first_s, x = _sync_s(torch, lambda: getattr(ts, fn)(rhs))
+        err = float(np.max(np.abs(x - 1.0)))
+        if not err < 1e-3:
+            raise AssertionError(f"{name}: {fn} with b = L*1 (L^T*1 for "
+                                 f"the transposed): max|1 - x| {err:.3e}")
+        times = sorted(_sync_s(torch, lambda: getattr(ts, fn)(rhs))[0]
+                       for _ in range(5))
+        rec[fn] = dict(first_s=first_s, s_min_med_max=[times[0], times[2],
+                                                       times[-1]],
+                       max_err=err, nnz_per_s=2 * l.nnz / times[2])
+    for key, prog in ex.programs.items():
+        rec.setdefault("programs", {})[key] = dict(
+            capture_s=prog.capture_s, nodes=prog.nodes)
+    bd = torch.as_tensor(b, device="cuda", dtype=ex.dtype)
+    btd = torch.as_tensor(bt, device="cuda", dtype=ex.dtype)
+    for fn, rhs in (("solve_lower", bd), ("solve_upper", btd)):
+        prof = _device_ops(torch, lambda: getattr(ex, fn)(ts._lx, rhs),
+                           top=6)
+        rec[fn + "_device"] = dict(
+            ops=prof["ops"], busy_ms=prof["busy_ms"],
+            span_ms=prof["span_ms"], by_name=prof["by_name"])
+    rec["card"] = card
+    return rec, ts
+
+
+def _pruned(torch, np, ts, rows, card):
+    """The pruned solver of ``ts`` on one RHS pattern (``rows``): its
+    build, reach and five timed solves after the first, against the full
+    solve within 1e-5 of the full solution's scale."""
+    t0 = time.perf_counter()
+    ps = ts.pruned(rows)
+    build_s = time.perf_counter() - t0
+    b = np.zeros(ts.l.n)
+    b[rows] = np.random.default_rng(0).standard_normal(len(rows))
+    full = ts.solve(b)
+    first_s, x = _sync_s(torch, lambda: ps.solve(b))
+    scale = float(np.abs(full).max())
+    err = float(np.abs(x - full).max())
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"pruned {ts.config.tier}: differs from the "
+                             f"full solve by {err:.3e} > 1e-5 * {scale:.3e}")
+    times = sorted(_sync_s(torch, lambda: ps.solve(b))[0] for _ in range(5))
+    touched = ps.cols if ts.config.tier == "supernodal" else ps.reach
+    out = dict(tier=ts.config.tier, rows=[int(r) for r in rows],
+               reach=int(len(touched)), build_s=build_s, first_s=first_s,
+               s_min_med_max=[times[0], times[2], times[-1]],
+               max_abs_diff=err, scale=scale, card=card)
+    if ts.config.tier == "supernodal":
+        out["supernode_reach"] = int(len(ps.sn_reach))
+    return out
+
+
+def _simplicial_phase(torch, np, kernels, generate, card):
+    """Phase 14: ``CholeskySolver(tier="simplicial")`` on
+    laplace_3d(SIMPLICIAL_GRID), nested dissection, f32."""
+    from parsy_bench_tpu_torch import CholeskySolver, SolverConfig
+    a = generate.laplace_3d(SIMPLICIAL_GRID)
+    cfg = SolverConfig(ordering="nd", dtype="float32", tier="simplicial")
+    t0 = time.perf_counter()
+    solver = CholeskySolver(a, cfg)
+    analyze_s = time.perf_counter() - t0
+    ex = solver.executor
+    data = solver.ap.data
+    kernels.reset_launch_counts()
+    warm_s, _ = _sync_s(torch, solver.factorize)
+    times = sorted(_sync_s(torch, solver.factorize)[0] for _ in range(5))
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"the simplicial tier launched a hand-written "
+                             f"kernel: {kernels.launch_counts()}")
+    if not solver.factor_ok():
+        raise AssertionError("simplicial factor has non-finite entries")
+    lx1 = solver.lx
+    lx2 = ex.factorize(data)
+    scale = float(lx1.abs().max())
+    replay_diff = float((lx1 - lx2).abs().max())
+    if not replay_diff <= 1e-6 * scale:
+        raise AssertionError(f"two simplicial factorizations differ by "
+                             f"{replay_diff:.3e} > 1e-6 * {scale:.3e}")
+    t0 = time.perf_counter()
+    resid = solver.factor_residual()
+    resid_s = time.perf_counter() - t0
+    if not resid < 1e-3:
+        raise AssertionError(f"simplicial factor residual {resid:.3e}")
+    b = a.spd_rhs_for_ones()
+    sres = solver.solve_residual(b, solver.solve(b))
+    if not sres < 1e-3:
+        raise AssertionError(f"simplicial solve(A*1) residual {sres:.3e}")
+    prog = ex.programs["factorize"]
+    prof = _device_ops(torch, lambda: ex.factorize(data), top=6)
+    med = times[2]
+    return dict(
+        tier="simplicial", update_delta=None, grid=SIMPLICIAL_GRID,
+        n=int(a.n), nnz_l=int(solver.plan.nnz), nlev=int(solver.plan.nlev),
+        update_triples=int(len(solver.plan.upd_a)),
+        segments=ex.num_segments, analyze_s=analyze_s,
+        timings=solver.timings, table_mb=ex.table_bytes / 1e6,
+        warm_factorize_s=warm_s, capture_s=prog.capture_s,
+        graph_nodes=prog.nodes,
+        factorize_s_min_med_max=[times[0], med, times[-1]],
+        gflops=solver.plan.flops_factor / med / 1e9,
+        replay_max_abs_diff=replay_diff, factor_residual=resid,
+        factor_residual_host_s=resid_s, solve_rel_residual=sres,
+        device_ops=prof["ops"], device_busy_ms=prof["busy_ms"],
+        idle_share_of_median_wall=1 - prof["busy_ms"] / (med * 1e3),
+        by_name=prof["by_name"], card=card)
+
+
+def _cli_phase(np, card):
+    """Phase 15: the CLI's subcommands as subprocesses on the card; each
+    must exit 0 and verify."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = []
+    for args in CLI_RUNS:
+        cmd = [sys.executable, "-m", "parsy_bench_tpu_torch.cli", *args,
+               "--device", "cuda"]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                             text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"{' '.join(args)} exited "
+                                 f"{run.returncode}: {run.stderr[-2000:]}")
+        line = json.loads([ln for ln in run.stdout.splitlines()
+                           if ln.startswith("{")][-1])
+        ok = (line.get("verified") if args[0] == "trisolve"
+              else line["factor_residual"] < 1e-3
+              and line["solve_residual"] < 1e-3)
+        if not ok or line["device"].split(":")[0] != "cuda":
+            raise AssertionError(f"{' '.join(args)} did not verify on the "
+                                 f"card: {line}")
+        out.append(dict(args=list(args), process_s=wall, line=line))
+    return dict(runs=out, card=card)
+
+
 def main() -> int:
     # the port must not reach jax; make any such import fail loudly
     sys.modules["jax"] = None
@@ -685,19 +952,22 @@ def main() -> int:
         idle_share_of_median_wall=1 - prof4["busy_ms"] / (med * 1e3),
         k1_device_ms=k1_dev_ms, k1_launches_main_path_run=launches,
         k1_launches_per_replay=k1_per_replay,
-        k1_profiled_launches_per_replay=k1_prof_n, card=card)
+        k1_profiled_launches_per_replay=k1_prof_n,
+        update_delta=cfg.update_delta, card=card)
     print(json.dumps(main))
 
     # ---- 5. the captured programs at n = 110,592 -----------------------
     captured = _captured_programs(torch, np, ex, solver, expected, med,
                                   prof4, card)
+    captured["update_delta"] = cfg.update_delta
     print("captured", json.dumps(captured))
 
     # ---- 6. factor residual at n = 13,824 ------------------------------
     small = CholeskySolver(generate.laplace_3d(24), cfg,
                            device="cuda").factorize()
     residual = small.factor_residual()
-    print(f"factor residual at n=13824: {residual:.3e}")
+    print(f"factor residual at n=13824: {residual:.3e} (update_delta "
+          f"{cfg.update_delta})")
     if not residual < 1e-3:
         raise AssertionError(f"factor residual {residual:.3e} >= 1e-3")
 
@@ -825,7 +1095,8 @@ def main() -> int:
         default_device_ops=dops["ops"], default_device_ms=dops["busy_ms"],
         pool_max_abs_diff=pool_err, pool_scale=pscale,
         solve_lower_max_err=ferr, solve_rel_residual=fres,
-        factor_residual_n13824=fresid, card=card)
+        factor_residual_n13824=fresid, update_delta=cfg.update_delta,
+        card=card)
     print("fused", json.dumps(fused))
 
     # ---- 9. the forward solves -----------------------------------------
@@ -920,7 +1191,56 @@ def main() -> int:
                + probes.NIDX // probes.PER * 8 * width * 4,
                probes.NIDX * 8 * width)]
 
-    # ---- 11. result ----------------------------------------------------
+    # ---- 11. the scatter update mode at n = 110,592 -------------------
+    scatter = _scatter_phase(torch, np, kernels, a, cfg, card)
+    print("scatter", json.dumps(scatter))
+
+    # ---- 12. the triangular solves at n = 110,592 on phase 4's factor --
+    # (no hand-written kernel lies on this path: the counts stay at 0)
+    from parsy_bench_tpu_torch.symbolic.dagplan import choose_schedule
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    l_chordal = solver.factor_csc()
+    factor_csc_s = time.perf_counter() - t0
+    tri = {}
+    for name, tier, sched in (("supernodal", "supernodal", "auto"),
+                              ("wavefront", "simplicial", "wavefront"),
+                              ("coarsened", "simplicial", "coarsened")):
+        rec, tri[name] = _trisolve(torch, np, name, l_chordal, SolverConfig(
+            tier=tier, trisolve_schedule=sched, dtype="float32"), card)
+        print("trisolve", json.dumps(rec))
+    auto = choose_schedule(l_chordal, tri["wavefront"].levels)
+    rows = np.array([0, a.n // 2, a.n - 1])
+    pruned = [_pruned(torch, np, tri[k], rows, card)
+              for k in ("supernodal", "wavefront")]
+    print("pruned", json.dumps(pruned))
+    del tri
+
+    # ---- 13. a non-chordal L: the lower half of A at n = 110,592 -------
+    l_lower = a if a.is_lower() else a.lower_half()
+    for sched in ("wavefront", "coarsened"):
+        rec, ts = _trisolve(torch, np, f"lower half of A, {sched}", l_lower,
+                            SolverConfig(tier="simplicial", dtype="float32",
+                                         trisolve_schedule=sched), card)
+        print("trisolve", json.dumps(rec))
+    auto_lower = choose_schedule(l_lower, ts.levels)
+    del ts
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"the triangular solves launched a hand-written "
+                             f"kernel: {kernels.launch_counts()}")
+    print("trisolve picks", json.dumps(dict(
+        auto_factor=auto, auto_lower_half=auto_lower,
+        factor_csc_s=factor_csc_s, nnz_l=int(l_chordal.nnz),
+        nnz_lower_half=int(l_lower.nnz), card=card)))
+
+    # ---- 14. the simplicial Cholesky at laplace_3d(SIMPLICIAL_GRID) ----
+    simplicial = _simplicial_phase(torch, np, kernels, generate, card)
+    print("simplicial", json.dumps(simplicial))
+
+    # ---- 15. the CLI ----------------------------------------------------
+    print("cli", json.dumps(_cli_phase(np, card)))
+
+    # ---- 16. result ----------------------------------------------------
     print(card)
     k2_path = [r for r in k2 if r["shape"][2] <= 64]
 

@@ -1,4 +1,5 @@
 from parsy_bench_tpu_torch.models.solver import (CholeskySolver,
-                                                 NotPositiveDefiniteError)
+                                                 NotPositiveDefiniteError,
+                                                 TriangularSolver)
 
-__all__ = ["CholeskySolver", "NotPositiveDefiniteError"]
+__all__ = ["CholeskySolver", "NotPositiveDefiniteError", "TriangularSolver"]

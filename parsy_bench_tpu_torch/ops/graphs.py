@@ -31,12 +31,17 @@ Each program records:
   the CPU);
 * ``nodes``: the graph's node count, read with ``cuGraphGetNodes`` of
   ``libcuda`` (None on the CPU).
+
+``ProgramHost`` is what the executors share: their programs by name,
+their index tables on the device and the record of which tensors their
+static inputs hold.
 """
 from __future__ import annotations
 
 import ctypes
 import time
 
+import numpy as np
 import torch
 
 from parsy_bench_tpu_torch.ops import kernels
@@ -126,6 +131,70 @@ class Program:
 
 def _delta(before: dict) -> dict:
     return {k: v - before[k] for k, v in kernels.launch_counts().items()}
+
+
+class ProgramHost:
+    """The programs of one executor, its index tables on the device and
+    the record of what its static tensors hold.  An executor sets
+    ``device``, uploads its tables with ``_up``, calls
+    ``_init_programs(device)`` once, allocates its static tensors outside
+    any capture, and runs its entry points as
+    ``_program(name, closure).run()``."""
+
+    #: bytes of index tables held on the device (``_up``)
+    table_bytes = 0
+
+    def _up(self, arr, dtype=torch.int32) -> torch.Tensor:
+        """A host table as a tensor on the executor's device."""
+        t = torch.as_tensor(np.ascontiguousarray(arr)).to(
+            device=self.device, dtype=dtype)
+        self.table_bytes += t.numel() * t.element_size()
+        return t
+
+    def _init_programs(self, device: torch.device) -> None:
+        #: name -> (the tensors the static ones hold, their version
+        #: counters then); a replay bumps no counter, so each program that
+        #: writes a static tensor resets its entry
+        self._held = {}
+        self._graph_pool = graph_pool(device)
+        #: name -> ``Program``, made at first use
+        self.programs = {}
+
+    def _program(self, name, fn) -> Program:
+        """The program ``name``, made from the closure ``fn`` at first
+        use."""
+        prog = self.programs.get(name)
+        if prog is None:
+            prog = Program(name, fn, self.device, self._graph_pool)
+            self.programs[name] = prog
+        return prog
+
+    def _hold(self, name, tensors) -> None:
+        self._held[name] = (tuple(tensors),
+                            tuple(t._version for t in tensors))
+
+    def _holds(self, name, tensors) -> bool:
+        held = self._held.get(name)
+        return (held is not None and len(held[0]) == len(tensors)
+                and all(p is q for p, q in zip(held[0], tensors))
+                and held[1] == tuple(t._version for t in tensors))
+
+    def _load(self, name, static, tensors) -> None:
+        """Copy ``tensors`` into the static tensors of the programs unless
+        they hold them already (the same tensors at the same version
+        counters)."""
+        tensors = tuple(torch.as_tensor(t) for t in tensors)
+        if self._holds(name, tensors):
+            return
+        if (len(tensors) != len(static)
+                or any(t.shape != s.shape for s, t in zip(static, tensors))):
+            raise ValueError(
+                f"expected {name} of shapes "
+                f"{[tuple(s.shape) for s in static]}, got "
+                f"{[tuple(t.shape) for t in tensors]}")
+        for s, t in zip(static, tensors):
+            s.copy_(t)
+        self._hold(name, tensors)
 
 
 def elapsed_s(device: torch.device, fn) -> float:

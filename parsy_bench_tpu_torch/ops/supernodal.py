@@ -24,7 +24,11 @@ Counterpart of ``parsy_bench_tpu/ops/supernodal.py`` on the same
   wavefront schedule (``solve_spd`` runs the leveled forward solve, as the
   JAX executor's does);
 * ``factorize_segmented``, ``factorize_loop``, ``solve_loop`` and
-  ``profile_segments`` — the JAX executor's benchmark entry points.
+  ``profile_segments`` — the JAX executor's benchmark entry points;
+* ``init_pools`` and ``prepare_solve_pools`` — a given factor's values
+  placed in the pools and its diagonal blocks' inverses stored, for the
+  blocked ``TriangularSolver`` on a trisolve plan
+  (``symbolic/strisolve.py``: finalize buckets, no update buckets).
 
 Every entry point that the JAX executor compiles runs here as captured
 programs (``ops/graphs.py``): closures over static tensors (the A values
@@ -66,37 +70,9 @@ import numpy as np
 import torch
 
 from parsy_bench_tpu_torch.ops import dense, graphs, kernels
+from parsy_bench_tpu_torch.ops.device import (refuse_tf32, require,
+                                              resolve_device, torch_dtype)
 from parsy_bench_tpu_torch.symbolic.splan import SupernodalPlan, SupSegment
-
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
-
-
-def torch_dtype(dtype) -> torch.dtype:
-    """A torch float dtype from a name, numpy dtype or torch dtype."""
-    if isinstance(dtype, torch.dtype):
-        if dtype in _DTYPES.values():
-            return dtype
-    else:
-        name = np.dtype(dtype).name
-        if name in _DTYPES:
-            return _DTYPES[name]
-    raise ValueError(f"unsupported dtype {dtype!r}: float32 or float64")
-
-
-def resolve_device(device) -> torch.device:
-    """The torch device the caller named; raises when it is a CUDA device
-    on a machine without CUDA (there is no CPU fallback)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but CUDA is "
-                               f"not available")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}: cpu or cuda")
-    return dev
-
 
 def chol_inverse(D):
     """Batched masked-SPD Cholesky + inverse: the CUDA kernel for a CUDA
@@ -123,11 +99,6 @@ def finalize_fused(blk, w, cnt):
 
 #: widest class the fused finalize takes, as in the JAX executor
 FUSED_MAX_WIDTH = 64
-
-
-def _require(ok, msg):
-    if not ok:
-        raise ValueError(f"plan out of bounds: {msg}")
 
 
 def _lanes_major(arr):
@@ -185,7 +156,7 @@ class _SolveTables:
     has_cls: list             # per class: the segment finalizes panels
 
 
-class SupernodalExecutor:
+class SupernodalExecutor(graphs.ProgramHost):
     """Numeric phase for one ``SupernodalPlan`` on one device: the card
     unless the caller passes ``device="cpu"`` (plain kernel versions).
 
@@ -207,11 +178,7 @@ class SupernodalExecutor:
             raise NotImplementedError(
                 "plan with the aligned-operand pool (solve_gpool_mb > 0): "
                 "_gpool_impl is a later port (ROADMAP §1, item 3)")
-        if (self.device.type == "cuda"
-                and torch.backends.cuda.matmul.allow_tf32):
-            raise RuntimeError(
-                "torch.backends.cuda.matmul.allow_tf32 is True: TF32 "
-                "products cost ~1e-3 in the factor; set it to False")
+        refuse_tf32(self.device)
         lay = plan.layout
         self.ncls = lay.ncls
         self.classes = tuple(int(c) for c in lay.classes)
@@ -220,9 +187,7 @@ class SupernodalExecutor:
                            for c in self.classes]
         self._nrows = [int(r) for r in plan.nrows]
         for ci, r in enumerate(self._nrows):
-            _require(r % 8 == 0, f"class {ci} pool rows {r} not packed")
-        #: bytes of index tables held on the device
-        self.table_bytes = 0
+            require(r % 8 == 0, f"class {ci} pool rows {r} not packed")
         self._nnz_a = int(sum(m.shape[1] for m in lay.a_map))
         self._nnz_l = int(lay.nnz_l)
         self._a_map = [self._map(m, ci, self._nnz_a, "a_map")
@@ -247,33 +212,22 @@ class SupernodalExecutor:
                       if self._has_fast_solve else ())
         self._b_in = torch.zeros(plan.n, dtype=dt, device=dev)
         self._x_out = torch.zeros(plan.n, dtype=dt, device=dev)
-        #: "pools" / "linv" -> (the tensors the static ones hold, their
-        #: version counters then); a replay bumps no counter, so each
-        #: program that writes a static tensor resets its entry.  "prep":
-        #: the pools whose Linv pools ``solve_prep`` returned last
-        #: (``_prep_linv``)
-        self._held = {}
+        #: ``_held`` keys: "pools" and "linv", what the static pools and
+        #: Linv pools hold; "prep", the pools whose Linv pools
+        #: ``solve_prep`` returned last (``_prep_linv``)
+        self._init_programs(dev)
         self._prep_linv = None
-        self._graph_pool = graphs.graph_pool(dev)
-        #: name -> ``graphs.Program``, made at first use
-        self.programs = {}
 
     # ----------------------------------------------------------- tables
-    def _up(self, arr, dtype=torch.int32):
-        t = torch.as_tensor(np.ascontiguousarray(arr)).to(
-            device=self.device, dtype=dtype)
-        self.table_bytes += t.numel() * t.element_size()
-        return t
-
     def _map(self, m, ci, nsrc, name):
         """(pool position, source index) map, bounds-checked, as int64."""
         m = np.asarray(m, dtype=np.int64)
         size = self._nrows[ci] * self.classes[ci]
         if m.shape[1]:
-            _require(0 <= m[0].min() and m[0].max() < size,
-                     f"{name} class {ci} position outside pool")
-            _require(0 <= m[1].min() and m[1].max() < nsrc,
-                     f"{name} class {ci} source index outside values")
+            require(0 <= m[0].min() and m[0].max() < size,
+                    f"{name} class {ci} position outside pool")
+            require(0 <= m[1].min() and m[1].max() < nsrc,
+                    f"{name} class {ci} source index outside values")
         return self._up(m[0], torch.int64), self._up(m[1], torch.int64)
 
     def _ar(self, k):
@@ -288,33 +242,33 @@ class SupernodalExecutor:
         ws = [int(x) for x in seg.wslice]
         rlo = np.asarray(seg.rlo, dtype=np.int64).reshape(self.ncls, T)
         for ci in range(self.ncls):
-            _require(np.all(rlo[ci] >= 0)
-                     and np.all(rlo[ci] + ws[ci] <= self._nrows[ci]),
-                     f"class {ci} row window past the pool end")
+            require(np.all(rlo[ci] >= 0)
+                    and np.all(rlo[ci] + ws[ci] <= self._nrows[ci]),
+                    f"class {ci} row window past the pool end")
         gsc = getattr(seg, "gsc", None)
         upd = []
         for b in seg.upd:
             a8 = _lanes_major(b.arow) // 8
             b8 = _lanes_major(b.brow) // 8
             rows8 = self._nrows[b.kcls] // 8
-            _require(a8.min(initial=0) >= 0
-                     and a8.max(initial=0) + b.Mc // 8 <= rows8,
-                     "update A-chunk gather past the pool end")
-            _require(b8.min(initial=0) >= 0
-                     and b8.max(initial=0) + b.Q // 8 <= rows8,
-                     "update B-operand gather past the pool end")
+            require(a8.min(initial=0) >= 0
+                    and a8.max(initial=0) + b.Mc // 8 <= rows8,
+                    "update A-chunk gather past the pool end")
+            require(b8.min(initial=0) >= 0
+                    and b8.max(initial=0) + b.Q // 8 <= rows8,
+                    "update B-operand gather past the pool end")
             colq = _lanes_major(b.colq)
-            _require(colq.min(initial=0) >= 0
-                     and colq.max(initial=0) <= b.c,
-                     "update column index outside the target width")
+            require(colq.min(initial=0) >= 0
+                    and colq.max(initial=0) <= b.c,
+                    "update column index outside the target width")
             dst = None
             if gsc is None:
                 # with gather tables the plan's dst is never read (the JAX
                 # executor does not upload it either)
                 dst = _lanes_major(b.dst)
-                _require(dst.min(initial=0) >= 0
-                         and dst.max(initial=0) <= ws[b.ccls],
-                         "update delta row outside the window")
+                require(dst.min(initial=0) >= 0
+                        and dst.max(initial=0) <= ws[b.ccls],
+                        "update delta row outside the window")
                 dst = self._up(dst)
             upd.append(_UpdTables(a8=self._up(a8), b8=self._up(b8),
                                   colq=self._up(colq), dst=dst))
@@ -328,37 +282,37 @@ class SupernodalExecutor:
                 ntot = sum(b.arow.shape[0] * b.arow.shape[2] * b.Mc
                            for b in seg.upd if b.ccls == ci)
                 # splan casts source positions (+1) to int32 unchecked
-                _require(int(ent["ntot"]) == ntot and ntot + 1 < 2**31,
-                         f"class {ci} gather table positions overflow "
-                         f"int32 or disagree with the update buckets")
+                require(int(ent["ntot"]) == ntot and ntot + 1 < 2**31,
+                        f"class {ci} gather table positions overflow "
+                        f"int32 or disagree with the update buckets")
                 nstack = 1
                 for g in ent["gidx"]:
-                    _require(g.min(initial=0) >= 0
-                             and g.max(initial=0) <= ntot,
-                             f"class {ci} ladder gather outside the "
-                             f"contribution rows")
+                    require(g.min(initial=0) >= 0
+                            and g.max(initial=0) <= ntot,
+                            f"class {ci} ladder gather outside the "
+                            f"contribution rows")
                     nstack += g.shape[1]
                 pidx = ent["pidx"]
-                _require(pidx.shape == (T, ws[ci])
-                         and pidx.min(initial=0) >= 0
-                         and pidx.max(initial=0) < nstack,
-                         f"class {ci} window take outside the ladder sums")
+                require(pidx.shape == (T, ws[ci])
+                        and pidx.min(initial=0) >= 0
+                        and pidx.max(initial=0) < nstack,
+                        f"class {ci} window take outside the ladder sums")
                 gsc_t.append(dict(gidx=[self._up(g) for g in ent["gidx"]],
                                   pidx=self._up(pidx)))
         fin = []
         for b in seg.fin:
             boff = np.asarray(b.boff, dtype=np.int64)
-            _require(np.all(boff >= 0)
-                     and np.all(boff + b.P * b.H <= ws[b.ccls]),
-                     "finalize bucket slice past the window end")
-            _require(np.all((b.w >= 0) & (b.w <= b.c)),
-                     "finalize width outside the class width")
-            _require(b.H >= b.c and np.all((b.cnt >= 0) & (b.cnt <= b.P)),
-                     "finalize bucket shorter than its width, or its lane "
-                     "count outside [0, P]")
-            _require(np.all((b.cols0 >= 0) & (b.cols0 <= n))
-                     and np.all((b.rows >= 0) & (b.rows <= n)),
-                     "finalize column/row id outside [0, n]")
+            require(np.all(boff >= 0)
+                    and np.all(boff + b.P * b.H <= ws[b.ccls]),
+                    "finalize bucket slice past the window end")
+            require(np.all((b.w >= 0) & (b.w <= b.c)),
+                    "finalize width outside the class width")
+            require(b.H >= b.c and np.all((b.cnt >= 0) & (b.cnt <= b.P)),
+                    "finalize bucket shorter than its width, or its lane "
+                    "count outside [0, P]")
+            require(np.all((b.cols0 >= 0) & (b.cols0 <= n))
+                    and np.all((b.rows >= 0) & (b.rows <= n)),
+                    "finalize column/row id outside [0, n]")
             fin.append(_FinTables(cnt=np.asarray(b.cnt, dtype=np.int64),
                                   boff=boff, w=self._up(b.w),
                                   cols0=self._up(b.cols0),
@@ -425,18 +379,18 @@ class SupernodalExecutor:
         for ci, c in enumerate(self.classes):
             m = np.asarray(plan.bmap[ci], dtype=np.int64)
             if m.shape[1]:
-                _require(m[0].min() >= 0 and m[0].max() < npan[ci] * c,
-                         f"bmap class {ci} position outside the xb pool")
-                _require(m[1].min() >= 0 and m[1].max() < n,
-                         f"bmap class {ci} column outside [0, n)")
+                require(m[0].min() >= 0 and m[0].max() < npan[ci] * c,
+                        f"bmap class {ci} position outside the xb pool")
+                require(m[1].min() >= 0 and m[1].max() < n,
+                        f"bmap class {ci} column outside [0, n)")
             self._bmap.append((self._up(m[0], torch.int64),
                                self._up(m[1], torch.int64)))
-        _require(plan.slotw is not None
-                 and all(np.shape(sw) == (npan[ci],)
-                         and np.all((sw >= 0) & (sw <= c))
-                         for ci, (sw, c) in enumerate(zip(plan.slotw,
-                                                          self.classes))),
-                 "slot widths do not cover the slots or exceed the class")
+        require(plan.slotw is not None
+                and all(np.shape(sw) == (npan[ci],)
+                        and np.all((sw >= 0) & (sw <= c))
+                        for ci, (sw, c) in enumerate(zip(plan.slotw,
+                                                         self.classes))),
+                "slot widths do not cover the slots or exceed the class")
         self._slotw = [self._up(sw) for sw in plan.slotw]
         self._ssegs = []
         for seg in plan.segments:
@@ -446,38 +400,38 @@ class SupernodalExecutor:
                                                                   T)
             sw = [int(x) for x in seg.sslice]
             for ci in range(self.ncls):
-                _require(np.all(srlo[ci] >= 0)
-                         and np.all(srlo[ci] + sw[ci] <= npan[ci]),
-                         f"class {ci} slot window past the xb/Linv pool "
-                         f"end")
-                _require(np.all((strue[ci] >= 0) & (strue[ci] <= sw[ci])),
-                         f"class {ci} true slots outside the slot window")
-            _require(len(seg.soff) == len(seg.fin),
-                     "one slot offset table per finalize bucket")
+                require(np.all(srlo[ci] >= 0)
+                        and np.all(srlo[ci] + sw[ci] <= npan[ci]),
+                        f"class {ci} slot window past the xb/Linv pool "
+                        f"end")
+                require(np.all((strue[ci] >= 0) & (strue[ci] <= sw[ci])),
+                        f"class {ci} true slots outside the slot window")
+            require(len(seg.soff) == len(seg.fin),
+                    "one slot offset table per finalize bucket")
             soff = []
             for b, so in zip(seg.fin, seg.soff):
                 so = np.asarray(so, dtype=np.int64)
-                _require(np.all(so >= 0)
-                         and np.all(srlo[b.ccls] + so + b.P
-                                    <= npan[b.ccls]),
-                         "Linv pool slice past the pool end")
+                require(np.all(so >= 0)
+                        and np.all(srlo[b.ccls] + so + b.P
+                                   <= npan[b.ccls]),
+                        "Linv pool slice past the pool end")
                 soff.append(so)
             supd = []
             for b in seg.supd:
                 b8 = np.asarray(b.brow, dtype=np.int64) // 8
-                _require(b8.min(initial=0) >= 0
-                         and b8.max(initial=0) + b.Q // 8
-                         <= self._nrows[b.kcls] // 8,
-                         "solve B-operand gather past the pool end")
-                _require(b.xrow.min(initial=0) >= 0
-                         and b.xrow.max(initial=0) < npan[b.kcls],
-                         "solve source slot outside the xb pool")
-                _require(b.colq.min(initial=0) >= 0
-                         and b.colq.max(initial=0) <= b.c,
-                         "solve column index outside the target width")
-                _require(b.dst.min(initial=0) >= 0
-                         and b.dst.max(initial=0) <= sw[b.ccls],
-                         "solve target slot outside the slot window")
+                require(b8.min(initial=0) >= 0
+                        and b8.max(initial=0) + b.Q // 8
+                        <= self._nrows[b.kcls] // 8,
+                        "solve B-operand gather past the pool end")
+                require(b.xrow.min(initial=0) >= 0
+                        and b.xrow.max(initial=0) < npan[b.kcls],
+                        "solve source slot outside the xb pool")
+                require(b.colq.min(initial=0) >= 0
+                        and b.colq.max(initial=0) <= b.c,
+                        "solve column index outside the target width")
+                require(b.dst.min(initial=0) >= 0
+                        and b.dst.max(initial=0) <= sw[b.ccls],
+                        "solve target slot outside the slot window")
                 supd.append(_SolveUpdTables(
                     b8=self._up(b8), xrow=self._up(b.xrow),
                     colq=self._up(b.colq), dst=self._up(b.dst)))
@@ -509,43 +463,19 @@ class SupernodalExecutor:
             flat.zero_()
             flat.index_add_(0, pos, a[sel])
 
+    def init_pools(self, a_data):
+        """New per-class packed pools holding the A values and zeros, op by
+        op (the counterpart of the JAX ``_init_pools_j``).  On a trisolve
+        plan (``symbolic/strisolve.py``) the values are L's: the layout's
+        map then places the given factor in the pools."""
+        a = self._check_a(a_data).to(device=self.device, dtype=self.dtype)
+        pools = tuple(torch.empty((r // 8, 8 * c), dtype=self.dtype,
+                                  device=self.device)
+                      for r, c in zip(self._nrows, self.classes))
+        self._init_pools(a, pools)
+        return pools
+
     # ---------------------------------------------------------- programs
-    def _program(self, name, fn) -> graphs.Program:
-        """The program ``name``, made from the closure ``fn`` at first
-        use."""
-        prog = self.programs.get(name)
-        if prog is None:
-            prog = graphs.Program(name, fn, self.device, self._graph_pool)
-            self.programs[name] = prog
-        return prog
-
-    def _hold(self, name, tensors):
-        self._held[name] = (tuple(tensors),
-                            tuple(t._version for t in tensors))
-
-    def _holds(self, name, tensors) -> bool:
-        held = self._held.get(name)
-        return (held is not None and len(held[0]) == len(tensors)
-                and all(p is q for p, q in zip(held[0], tensors))
-                and held[1] == tuple(t._version for t in tensors))
-
-    def _load(self, name, static, tensors):
-        """Copy ``tensors`` into the static tensors of the programs unless
-        they hold them already (the same tensors at the same version
-        counters)."""
-        tensors = tuple(tensors)
-        if self._holds(name, tensors):
-            return
-        if (len(tensors) != len(static)
-                or any(t.shape != s.shape for s, t in zip(static, tensors))):
-            raise ValueError(
-                f"expected {name} of shapes "
-                f"{[tuple(s.shape) for s in static]}, got "
-                f"{[tuple(t.shape) for t in tensors]}")
-        for s, t in zip(static, tensors):
-            s.copy_(t)
-        self._hold(name, tensors)
-
     def _pools_out(self):
         """Clones of the static pools, which the next program overwrites;
         the static pools then hold them."""
@@ -702,11 +632,7 @@ class SupernodalExecutor:
     def _factorize_eager(self, a_data):
         """``factorize`` run op by op on fresh pools, outside the programs
         and their static tensors: the reference they are held against."""
-        a = self._check_a(a_data).to(device=self.device, dtype=self.dtype)
-        pools = tuple(torch.empty((r // 8, 8 * c), dtype=self.dtype,
-                                  device=self.device)
-                      for r, c in zip(self._nrows, self.classes))
-        self._init_pools(a, pools)
+        pools = self.init_pools(a_data)
         for seg, tabs in zip(self.plan.segments, self._segs):
             for t in range(seg.nsteps):
                 self._step(pools, seg, tabs, t)
@@ -764,6 +690,47 @@ class SupernodalExecutor:
         valid = ar[None, :] < w[:, None]
         dinv = torch.where(valid, 1.0 / torch.where(valid, dvec, 1.0), 0.0)
         return strict + torch.diag_embed(dinv)
+
+    def _diag_tri(self, blk, w, c):
+        """The solve-ready lower triangle of a factored panel top: the
+        valid w x w lower part, identity on the padded diagonal so that
+        the inverse exists."""
+        ar = self._ar(c)
+        i = ar[None, :, None]
+        j = ar[None, None, :]
+        wv = w[:, None, None]
+        D = blk[:, :c, :].masked_fill(~((i < wv) & (j < wv) & (j <= i)), 0)
+        return D + ((i == j) & (i >= wv)).to(self.dtype)
+
+    def _prepare_solve_impl(self, pools):
+        """Write Linv^T into the strict upper triangle of every panel's
+        diagonal block, in place, bucket after bucket as the JAX scan
+        does; the lower triangle keeps the pools' own values.  For
+        factors loaded as values (the blocked ``TriangularSolver``):
+        ``factorize`` stores Linv^T itself."""
+        for seg, tabs in zip(self.plan.segments, self._segs):
+            for t in range(seg.nsteps):
+                for b, ft in zip(seg.fin, tabs.fin):
+                    c = b.c
+                    blk = self._panel_blk(pools, b, ft, tabs.rlo, t)
+                    w = ft.w[t]
+                    Linv = dense.nilpotent_inv(self._diag_tri(blk, w, c))
+                    ar = self._ar(c)
+                    i = ar[None, :, None]
+                    j = ar[None, None, :]
+                    wv = w[:, None, None]
+                    blk[:, :c, :] += Linv.transpose(1, 2).masked_fill(
+                        ~((j > i) & (i < wv) & (j < wv)), 0)
+
+    def prepare_solve_pools(self, pools):
+        """Pools with the stored inverses the solves read, from a factor
+        loaded as values (``init_pools``): one program (the counterpart of
+        the JAX ``_prepare_solve`` jit) on the static pools, returned as
+        clones."""
+        self._load("pools", self._pools, pools)
+        self._program("prepare_solve",
+                      lambda: self._prepare_solve_impl(self._pools)).run()
+        return self._pools_out()
 
     def _check_vec(self, b):
         b = torch.as_tensor(b)

@@ -27,7 +27,7 @@ _BINDERS = {
     "parsy_bench_tpu": ("etree", "colcounts", "ordering", "supernodes",
                         "plan"),
     "parsy_bench_tpu_torch": ("etree", "colcounts", "ordering",
-                              "supernodes"),
+                              "supernodes", "plan"),
 }
 
 

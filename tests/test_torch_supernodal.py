@@ -17,6 +17,7 @@ import functools
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 
 import jax
 
@@ -74,6 +75,9 @@ def _assert_same(x, y, path):
     elif isinstance(x, np.ndarray):
         assert isinstance(y, np.ndarray), path
         assert x.dtype == y.dtype and np.array_equal(x, y), path
+    elif sp.issparse(x):
+        assert sp.issparse(y) and x.shape == y.shape, path
+        assert (x != y).nnz == 0, path
     elif isinstance(x, (list, tuple)):
         assert type(x) is type(y) and len(x) == len(y), path
         for i, (u, v) in enumerate(zip(x, y)):

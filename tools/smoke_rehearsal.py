@@ -19,7 +19,9 @@ string turned to ``"cpu"`` and these stand-ins:
   runs, replays included;
 * every device asked for resolves to the CPU;
 * the plan-shape checks print instead of raising, and the kernel shapes
-  of phases 3 and 7 are cut to the small plan's.
+  of phases 3 and 7 are cut to the small plan's;
+* the simplicial phase runs at laplace_3d(5) and the CLI (phase 15,
+  real subprocesses, on the CPU) on small generated matrices.
 
 Every number it prints is a placeholder or a CPU time: it shows that the
 script runs through, not how fast anything is.
@@ -139,7 +141,7 @@ def _stub_probes():
     probes.run = run
 
 
-def _device_ops(torch, fn, kernel=()):
+def _device_ops(torch, fn, kernel=(), top=0):
     fn()
     before = dict(EXECUTED)
     fn()
@@ -148,7 +150,7 @@ def _device_ops(torch, fn, kernel=()):
          else ran["finalize_fused_cuda"] if kernel else 0)
     return dict(ops=1, busy_ms=1.0, span_ms=1.0, wall_ms=2.0,
                 idle_share_of_span=0.0, idle_share_of_wall=0.5,
-                k_n=n, k_ms=1.0)
+                k_n=n, k_ms=1.0, by_name=[["(rehearsal)", 1, 1.0]][:top])
 
 
 def main() -> int:
@@ -181,6 +183,12 @@ def main() -> int:
     ns["K1_SHAPES"] = tuple(sorted(s.executor.chol_batch_shapes()))[:5]
     ns["K1_SMALL"] = ((3, 8), (3, 48))
     ns["K2_SHAPES"] = (max(fshapes), (4, 64, 32), (1, 96, 32), (3, 64, 64))
+    # the simplicial phase and the CLI at small sizes
+    ns["SIMPLICIAL_GRID"] = 5
+    ns["CLI_RUNS"] = (("cholesky", "gen:laplace3d:5", "--verify"),
+                      ("trisolve", "gen:laplace3d:5"),
+                      ("trisolve", "gen:laplace3d:8", "--lower", "--tier",
+                       "simplicial", "--schedule", "coarsened"))
     return ns["main"]()
 
 
