@@ -109,12 +109,37 @@ Phases, each of which raises on failure (nothing is caught):
    5, two factorizations within 1e-6 of their scale, the factor residual
    < 1e-3 and the solve residual < 1e-3;
 15. the CLI (``CLI_RUNS``) as subprocesses on the card: each must exit 0
-   and verify.
+   and verify;
+16. the multi-device tier (``parallel/``) in G rank processes
+   (``parallel/comm.launch``), all on the first card with the gloo
+   backend (NCCL with one card per rank only where the machine has G
+   cards), on phase 4's matrix and ordering: ``DistExecutor`` at
+   G = 4 and 2 (``DIST_GROUPS``) with its own ``build_dist_plan``, and
+   ``ShardedSupernodalExecutor`` at G = 4 on a plan built with
+   ``num_partitions=4``, each held against phase 4's single-device factor
+   (values within 1e-4; ``solve_lower`` with b = L*1 and ``solve_spd``
+   with b = A*1 within 1e-3 of x = 1, the sharded ``solve_lower`` within
+   1e-4 of phase 4's; ``factorize_segmented(group=8)`` within 1e-6 of the
+   pool scale of ``factorize``; pool bytes per rank below the
+   single-device pools'), ``ShardedSimplicialExecutor`` at G = 4 on phase
+   14's plan against its factor (within 1e-4 of the scale); every rank's
+   factorize launched K1 once per chol call its plan implies (printed per
+   rank), and each rank then held K1 against its plain version at every
+   (P, c) its factorize gave K1, at phase 3's bars
+   (``parallel/runs._check_k1``); the all_reduce payload of one
+   ``DistExecutor`` factorize equal to ``DistPlan.psum_bytes_per_step()``'s
+   model; the factorize median of 3 after one first call and the solve
+   medians (host clock, synchronized), each rank's device busy ms of its
+   first factorize (torch.profiler in the rank).  A rank that raises or
+   hangs fails the phase.  These walls come from host-staged collectives among ranks
+   that share one card: no multi-GPU figure.
 
 Output: JSON lines of each phase's numbers, the card line, one JSON line
 ``{"kernels": [...]}`` (K1, K2, P1, P2, P3, each with the launches of its
 path's run, its times, bound and yardstick; K1 and K2 also with their
-launches per replay from the capture and from the profiler) and, last,
+launches per replay from the capture and from the profiler; K1 also with
+its launches in each rank's factorize of phase 16 and its checks at the
+ranks' batch shapes) and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
 """
@@ -148,6 +173,10 @@ CLI_RUNS = (("cholesky", "gen:laplace3d:24", "--verify"),
             ("trisolve", "gen:laplace3d:20"),
             ("trisolve", "gen:laplace3d:48", "--lower", "--tier",
              "simplicial", "--schedule", "coarsened"))
+#: phase 16: the group sizes of ``DistExecutor`` and of the sharded
+#: executors (ranks share the card unless it has one card per rank)
+DIST_GROUPS = (4, 2)
+SHARDED_G = 4
 #: the kernels' names as torch.profiler shows them (csrc/chol_inverse.cu,
 #: csrc/finalize_fused.cu)
 K1_NAMES = ("chol_inverse_warp_kernel", "chol_inverse_blocked_kernel")
@@ -711,7 +740,8 @@ def _pruned(torch, np, ts, rows, card):
 
 def _simplicial_phase(torch, np, kernels, generate, card):
     """Phase 14: ``CholeskySolver(tier="simplicial")`` on
-    laplace_3d(SIMPLICIAL_GRID), nested dissection, f32."""
+    laplace_3d(SIMPLICIAL_GRID), nested dissection, f32.  Returns (record,
+    solver)."""
     from parsy_bench_tpu_torch import CholeskySolver, SolverConfig
     a = generate.laplace_3d(SIMPLICIAL_GRID)
     cfg = SolverConfig(ordering="nd", dtype="float32", tier="simplicial")
@@ -761,7 +791,185 @@ def _simplicial_phase(torch, np, kernels, generate, card):
         factor_residual_host_s=resid_s, solve_rel_residual=sres,
         device_ops=prof["ops"], device_busy_ms=prof["busy_ms"],
         idle_share_of_median_wall=1 - prof["busy_ms"] / (med * 1e3),
-        by_name=prof["by_name"], card=card)
+        by_name=prof["by_name"], card=card), solver
+
+
+def _rank_layout(torch, G):
+    """(backend, devices) of G ranks: NCCL with one card per rank where
+    the machine has G cards, else gloo with every rank on the first card
+    (NCCL refuses two ranks on one GPU)."""
+    if torch.cuda.device_count() >= G:
+        return "nccl", [torch.device("cuda", r) for r in range(G)]
+    return "gloo", [torch.device("cuda", 0)] * G
+
+
+def _psum_model(plan, recs):
+    """The measured all_reduce payload of one factorize against
+    ``DistPlan.psum_bytes_per_step()`` (which models each rank's ring
+    traffic, 2 (G-1)/G times the payload, at 4 bytes an entry)."""
+    model = plan.psum_bytes_per_step()
+    ring = 2.0 * (plan.G - 1) / plan.G
+    got = [r["psum_bytes"] * ring for r in recs]
+    if not all(g == model["factorize_bytes"] for g in got):
+        raise AssertionError(f"all_reduce ring bytes {got} per factorize, "
+                             f"the plan models {model['factorize_bytes']}")
+    return dict(psum_calls=recs[0]["psum_calls"],
+                psum_payload_bytes=recs[0]["psum_bytes"],
+                psum_ring_bytes=got[0], model=model)
+
+
+def _rank_summary(recs):
+    """Per-rank numbers of one executor's run, and the medians of rank
+    0's timed calls."""
+    r0 = recs[0]
+    if not all(r["digest"] == r0["digest"] and r["jax_free"] for r in recs):
+        raise AssertionError("the ranks' arrays differ, or a rank loaded "
+                             "jax or the JAX package")
+    return dict(
+        executor=r0["executor"], G=r0["size"], backend=r0["backend"],
+        rank_devices=[r["device"] for r in recs],
+        init_s=[r["init_s"] for r in recs],
+        job_s=[r["job_s"] for r in recs],
+        first_factorize_s=[r["first_factorize_s"] for r in recs],
+        factorize_median_s=r0["factorize_s"][1],
+        factorize_s_rank0=r0["factorize_s"],
+        factorize_median_s_by_rank=[r["factorize_s"][1] for r in recs],
+        solve_median_s={k: v[1] for k, v in r0["solve_s"].items()},
+        k1_launches_per_factorize_by_rank=[r["k1_launches"] for r in recs],
+        device_busy_ms_by_rank=[r.get("device_busy_ms") for r in recs])
+
+
+def _check_rank_k1(recs):
+    """K1 launched in every rank's factorize, once per chol call the plan
+    implies (the card runs the rank's finalize through it), and held
+    against its plain version at each of the rank's batch shapes (the
+    rank raises if it disagrees).  Returns the checks: the distinct
+    (P, c) over the ranks and the largest errors."""
+    for r in recs:
+        if not r["k1_launches"] == r["chol_calls_per_factorize"] > 0:
+            raise AssertionError(
+                f"{r['executor']} rank {r['rank']}: K1 launched "
+                f"{r['k1_launches']} times in its factorize; the plan "
+                f"implies {r['chol_calls_per_factorize']} (> 0)")
+        if not r["k1_checks"]:
+            raise AssertionError(f"{r['executor']} rank {r['rank']}: K1 "
+                                 f"not checked at its batch shapes")
+    checks = [ck for r in recs for ck in r["k1_checks"]]
+    return dict(shapes=sorted({(P, c) for P, c, _, _ in checks}),
+                max_abs_err_L=max(ck[2] for ck in checks),
+                max_abs_err_Linv=max(ck[3] for ck in checks))
+
+
+def _multi_device_phase(torch, np, solver, cfg, lref, b_l, bp, x_fast,
+                        simp, card):
+    """Phase 16 (the module docstring): the multi-device tier in rank
+    processes on the card, held against phase 4's single-device factor
+    and phase 14's simplicial factor."""
+    from parsy_bench_tpu_torch.parallel import comm, runs
+    from parsy_bench_tpu_torch.symbolic.dplan import build_dist_plan
+    from parsy_bench_tpu_torch.symbolic.splan import build_supernodal_plan
+    t_phase = time.perf_counter()
+    data = solver.ap.data
+    solves = dict(solve_lower=b_l, solve_spd=bp)
+    t0 = time.perf_counter()
+    dplans = {G: build_dist_plan(solver.ap, solver.parent, solver.cc, G,
+                                 cfg) for G in DIST_GROUPS}
+    splan = build_supernodal_plan(
+        solver.ap, solver.parent, solver.cc, None,
+        cfg.replace(num_partitions=SHARDED_G))
+    plans_s = time.perf_counter() - t0
+    jobs = {G: [("dist", dict(plan=dplans[G], a_data=data, dtype="float32",
+                              lpat=solver.lpat, solves=solves, segmented=8,
+                              reps=3, profile=True))]
+            for G in DIST_GROUPS}
+    jobs[SHARDED_G] += [
+        ("sharded_supernodal", dict(plan=splan, a_data=data, dtype="float32",
+                                    solves=solves, reps=3, profile=True)),
+        ("sharded_simplicial", dict(plan=simp.plan, a_data=simp.ap.data,
+                                    dtype="float32", reps=3, profile=True))]
+    single_pool_bytes = solver.plan.pool_elems() * 4
+    lscale = float(np.abs(lref).max())
+    simp_ref = simp.lx.cpu().numpy()
+    out = dict(plans_s=plans_s, launches={}, card=card)
+    for G in sorted(jobs, reverse=True):
+        backend, devices = _rank_layout(torch, G)
+        print(f"multi-device: G = {G}, backend {backend}, rank devices "
+              f"{[str(d) for d in devices]}")
+        t0 = time.perf_counter()
+        res = comm.launch(runs.run_jobs, G, backend, devices, (jobs[G],),
+                          timeout=900)
+        out["launches"][G] = time.perf_counter() - t0
+        for k, (name, _) in enumerate(jobs[G]):
+            recs = [ranks[k] for ranks in res]
+            rec = _rank_summary(recs)
+            r0 = recs[0]
+            if name == "dist":
+                plan = dplans[G]
+                rec["k1_checks"] = _check_rank_k1(recs)
+                err = float(np.abs(r0["values"] - lref).max())
+                lower = float(np.abs(r0["solve_lower"] - 1).max())
+                spd = float(np.abs(r0["solve_spd"] - 1).max())
+                seg = max(r["segmented_max_diff"] / r["pool_scale"]
+                          for r in recs)
+                if not (err < 1e-4 and lower < 1e-3 and spd < 1e-3
+                        and seg <= 1e-6):
+                    raise AssertionError(
+                        f"DistExecutor G = {G}: factor values off the "
+                        f"single-device factor by {err:.3e} (bar 1e-4), "
+                        f"max|1 - x| {lower:.3e} (solve_lower, b = L*1) "
+                        f"and {spd:.3e} (solve_spd, b = A*1; bar 1e-3), "
+                        f"factorize_segmented(8) off by {seg:.3e} of the "
+                        f"pool scale (bar 1e-6)")
+                if not r0["pool_bytes"] < single_pool_bytes:
+                    raise AssertionError(
+                        f"DistExecutor G = {G}: {r0['pool_bytes']} pool "
+                        f"bytes per rank, not below the single-device "
+                        f"{single_pool_bytes}")
+                rec.update(_psum_model(plan, recs),
+                           factor_max_abs_err=err, factor_scale=lscale,
+                           solve_lower_max_err=lower,
+                           solve_spd_max_err=spd,
+                           segmented_rel_diff=seg,
+                           pool_mb_per_rank=r0["pool_bytes"] / 1e6,
+                           single_device_pool_mb=single_pool_bytes / 1e6,
+                           chol_calls_per_factorize=r0[
+                               "chol_calls_per_factorize"],
+                           comm=plan.comm)
+            elif name == "sharded_supernodal":
+                rec["k1_checks"] = _check_rank_k1(recs)
+                err = float(np.abs(r0["values"] - lref).max())
+                lower = float(np.abs(r0["solve_lower"] - x_fast).max())
+                spd = float(np.abs(r0["solve_spd"] - 1).max())
+                if not (err < 1e-4 and lower < 1e-4 and spd < 1e-3):
+                    raise AssertionError(
+                        f"ShardedSupernodalExecutor G = {G}: factor values "
+                        f"off the single-device factor by {err:.3e}, "
+                        f"solve_lower off the single-device solve by "
+                        f"{lower:.3e} (bars 1e-4), solve_spd max|1 - x| "
+                        f"{spd:.3e} (bar 1e-3)")
+                rec.update(psum_calls=r0["psum_calls"],
+                           psum_payload_bytes=r0["psum_bytes"],
+                           factor_max_abs_err=err,
+                           solve_lower_max_diff=lower,
+                           solve_spd_max_err=spd,
+                           chol_calls_per_factorize=r0[
+                               "chol_calls_per_factorize"])
+            else:
+                scale = float(np.abs(simp_ref).max())
+                err = float(np.abs(r0["values"] - simp_ref).max())
+                if not err < 1e-4 * scale:
+                    raise AssertionError(
+                        f"ShardedSimplicialExecutor G = {G}: L values off "
+                        f"the SimplicialExecutor's by {err:.3e} > 1e-4 * "
+                        f"{scale:.3e}")
+                rec.update(grid=SIMPLICIAL_GRID, levels=r0["levels"],
+                           psum_calls=r0["psum_calls"],
+                           psum_payload_bytes=r0["psum_bytes"],
+                           factor_max_abs_err=err, factor_scale=scale)
+            print("multi-device", json.dumps(rec))
+            out.setdefault("runs", []).append(rec)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def _cli_phase(np, card):
@@ -1234,15 +1442,26 @@ def main() -> int:
         nnz_lower_half=int(l_lower.nnz), card=card)))
 
     # ---- 14. the simplicial Cholesky at laplace_3d(SIMPLICIAL_GRID) ----
-    simplicial = _simplicial_phase(torch, np, kernels, generate, card)
+    simplicial, simp = _simplicial_phase(torch, np, kernels, generate, card)
     print("simplicial", json.dumps(simplicial))
 
     # ---- 15. the CLI ----------------------------------------------------
     print("cli", json.dumps(_cli_phase(np, card)))
 
-    # ---- 16. result ----------------------------------------------------
+    # ---- 16. the multi-device tier in rank processes -------------------
+    lref = ex.factor_values(solver.lx).cpu().numpy()
+    x_fast = ex.solve_lower(solver.lx, b_l).cpu().numpy()
+    multi = _multi_device_phase(torch, np, solver, cfg, lref, b_l, bp,
+                                x_fast, simp, card)
+    print("multi-device phase", json.dumps(dict(
+        plans_s=multi["plans_s"], launch_s=multi["launches"],
+        phase_s=multi["phase_s"], card=card)))
+    del simp
+
+    # ---- 17. result ----------------------------------------------------
     print(card)
     k2_path = [r for r in k2 if r["shape"][2] <= 64]
+    rank_k1 = [r["k1_checks"] for r in multi["runs"] if "k1_checks" in r]
 
     def probe_entry(name, line, rec, launches, k, **extra):
         bound_ms, bound_by = _bound(*p_work[k])
@@ -1273,11 +1492,18 @@ def main() -> int:
              # capture's (replays count none)
              launches=launches, launches_per_replay=k1_per_replay,
              profiled_launches_per_replay=k1_prof_n,
+             # phase 3's main-path shapes and phase 16's rank shapes
              max_abs_err=max(max(r["max_abs_err_L"], r["max_abs_err_Linv"])
-                             for r in k1),
+                             for r in k1 + rank_k1),
              # one call at each main-path shape; the library time is the
              # pair cholesky_ex + solve_triangular
-             **summed(k1), shapes=k1 + k1_small + k1_f64),
+             **summed(k1), shapes=k1 + k1_small + k1_f64,
+             # phase 16: per rank, in one factorize of each executor
+             rank_launches={f"{r['executor']} G={r['G']}":
+                            r["k1_launches_per_factorize_by_rank"]
+                            for r in multi["runs"] if "k1_checks" in r},
+             rank_shapes={f"{r['executor']} G={r['G']}": r["k1_checks"]
+                          for r in multi["runs"] if "k1_checks" in r}),
         dict(name="finalize_fused", route="cuda",
              source="parsy_bench_tpu_torch/csrc/finalize_fused.cu",
              replaces="parsy_bench_tpu/ops/pallas_kernels.py:235",

@@ -28,7 +28,16 @@ Counterpart of ``parsy_bench_tpu/ops/supernodal.py`` on the same
 * ``init_pools`` and ``prepare_solve_pools`` — a given factor's values
   placed in the pools and its diagonal blocks' inverses stored, for the
   blocked ``TriangularSolver`` on a trisolve plan
-  (``symbolic/strisolve.py``: finalize buckets, no update buckets).
+  (``symbolic/strisolve.py``: finalize buckets, no update buckets);
+* the rank-aware branches of the step loop and the leveled solves, the
+  counterparts of the JAX executor's ``axis_name`` branches, which
+  ``parallel/sharded.py`` runs on a plan with ``num_partitions`` = G > 1
+  in each of G ranks (``group``, ``parallel/comm.py``): each rank takes
+  its own shard of every update bucket's lanes and its owner-strided
+  finalize and solve lanes (lane % G == rank), and one ``psum`` per class
+  delta, finalize delta or solve step merges them.  With ``group=None``
+  (everything the single-device executor runs, its captured programs
+  included) the code is the single-device path.
 
 Every entry point that the JAX executor compiles runs here as captured
 programs (``ops/graphs.py``): closures over static tensors (the A values
@@ -99,6 +108,57 @@ def finalize_fused(blk, w, cnt):
 
 #: widest class the fused finalize takes, as in the JAX executor
 FUSED_MAX_WIDTH = 64
+
+
+def chol_groups(plan, seg, ks, c, G):
+    """The finalize buckets ``ks`` (of width c) of ``seg`` in consecutive
+    runs, one ``chol_inverse`` batch each, whose lanes per rank (P / G)
+    total at most ``plan.fin_chol_elems`` / c^2, so that every (sumP, c,
+    c) temp stays bounded (a run holds at least one bucket)."""
+    cap = max(1, int(getattr(plan, "fin_chol_elems", 32 * 2**20)) // (c * c))
+    groups, cur, cur_p = [], [], 0
+    for k in ks:
+        p = seg.fin[k].P // G
+        if cur and cur_p + p > cap:
+            groups.append(cur)
+            cur, cur_p = [], 0
+        cur.append(k)
+        cur_p += p
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def inv_blk(blk, w, ar):
+    """The diag block's triangular inverse from a factored panel block
+    blk (P, H, c) of widths w (P,): strict lower = transpose of the
+    Linv^T stored in the strict upper triangle by the finalize, diagonal
+    = 1/l_ii (zero on padded columns).  ``ar`` is ``arange(c)`` on the
+    block's device."""
+    c = ar.shape[0]
+    i = ar[None, :, None]
+    j = ar[None, None, :]
+    wv = w[:, None, None]
+    top = blk[:, :c, :]
+    strict = top.transpose(1, 2).masked_fill(
+        ~((i > j) & (i < wv) & (j < wv)), 0)
+    dvec = torch.diagonal(top, dim1=1, dim2=2)
+    valid = ar[None, :] < w[:, None]
+    dinv = torch.where(valid, 1.0 / torch.where(valid, dvec, 1.0), 0.0)
+    return strict + torch.diag_embed(dinv)
+
+
+def update_block(pool8, a8, b8, colq, b, ar, dtype):
+    """One update bucket's lanes: C = (A @ B_raw^T) @ S^T, (lanes, Mc, c),
+    with A the Mc-row chunks at packed rows ``a8`` and B_raw the Q-row
+    operands at ``b8`` of the packed pool ``pool8`` (R/8, 8K), and S the
+    one-hot column-alignment selector from ``colq`` (lanes, Q).  ``ar(k)``
+    is ``arange(k)`` on the pool's device."""
+    A = pool8[a8[:, None] + ar(b.Mc // 8)].reshape(-1, b.Mc, b.K)
+    Braw = pool8[b8[:, None] + ar(b.Q // 8)].reshape(-1, b.Q, b.K)
+    Chat = torch.bmm(A, Braw.transpose(1, 2))
+    S = (ar(b.c)[None, :, None] == colq[:, None, :]).to(dtype)
+    return torch.bmm(Chat, S.transpose(1, 2))
 
 
 def _lanes_major(arr):
@@ -327,19 +387,7 @@ class SupernodalExecutor(graphs.ProgramHost):
                 fin_fused.append(mine)
                 continue
             fin_fused.append([])
-            cap = max(1, int(getattr(self.plan, "fin_chol_elems",
-                                     32 * 2**20)) // (c * c))
-            groups, cur, cur_p = [], [], 0
-            for k in mine:
-                b = seg.fin[k]
-                if cur and cur_p + b.P > cap:
-                    groups.append(cur)
-                    cur, cur_p = [], 0
-                cur.append(k)
-                cur_p += b.P
-            if cur:
-                groups.append(cur)
-            fin_groups.append(groups)
+            fin_groups.append(chol_groups(self.plan, seg, mine, c, 1))
         return _SegTables(rlo=rlo, upd=upd, fin=fin, gsc=gsc_t,
                           fin_groups=fin_groups, fin_fused=fin_fused)
 
@@ -509,18 +557,12 @@ class SupernodalExecutor(graphs.ProgramHost):
         return self._program(f"segments[{lo}:{hi}]", self._chain(lo, hi))
 
     # ----------------------------------------------------------- updates
-    def _update_block(self, pools, b, ut: _UpdTables, t):
-        """One update bucket at step t: C = (A @ B_raw^T) @ S^T, (GP, Mc, c),
-        with S the one-hot column-alignment selector from ``colq``."""
-        pool8 = pools[b.kcls]
-        A = pool8[ut.a8[t][:, None] + self._ar(b.Mc // 8)].reshape(
-            -1, b.Mc, b.K)
-        Braw = pool8[ut.b8[t][:, None] + self._ar(b.Q // 8)].reshape(
-            -1, b.Q, b.K)
-        Chat = torch.bmm(A, Braw.transpose(1, 2))
-        S = (self._ar(b.c)[None, :, None]
-             == ut.colq[t][:, None, :]).to(self.dtype)
-        return torch.bmm(Chat, S.transpose(1, 2))
+    def _update_block(self, pools, b, ut: _UpdTables, t, lanes=slice(None)):
+        """``update_block`` of one bucket at step t, (GP, Mc, c); only the
+        ``lanes`` of the (G*P)-lane batch (one rank's shard)."""
+        return update_block(pools[b.kcls], ut.a8[t][lanes],
+                            ut.b8[t][lanes], ut.colq[t][lanes], b, self._ar,
+                            self.dtype)
 
     def _apply_updates_gather(self, pools, wins, seg, tabs, t):
         """Scatter-free updates: contributions land through the plan's
@@ -539,19 +581,32 @@ class SupernodalExecutor(graphs.ProgramHost):
             parts = [zero] + [call[gi[t]].sum(dim=1) for gi in ent["gidx"]]
             wins[ci].sub_(torch.cat(parts)[ent["pidx"][t]])
 
-    def _apply_updates(self, pools, wins, seg, tabs, t):
+    def _apply_updates(self, pools, wins, seg, tabs, t, group=None):
         """Batched update GEMMs row-added into per-class delta windows
         (one trailing dummy row takes the padding); one subtraction lands
-        each on its window."""
+        each on its window.  With ``group`` each rank runs its own shard
+        of every bucket (lanes [rank*P, (rank+1)*P) of the G*P) and the
+        class deltas are ``psum``'d (JAX: the ``axis_name`` branch; the
+        gather tables are single-device only)."""
         if tabs.gsc is not None:
+            if group is not None:
+                raise ValueError("the gather update tables are "
+                                 "single-device only")
             return self._apply_updates_gather(pools, wins, seg, tabs, t)
         deltas = [torch.zeros((seg.wslice[ci] + 1, c), dtype=self.dtype,
                               device=self.device)
                   for ci, c in enumerate(self.classes)]
         for b, ut in zip(seg.upd, tabs.upd):
-            C = self._update_block(pools, b, ut, t)
-            deltas[b.ccls].index_add_(0, ut.dst[t].reshape(-1),
+            lanes = slice(None)
+            if group is not None:
+                P = b.arow.shape[2]
+                lanes = slice(group.rank * P, (group.rank + 1) * P)
+            C = self._update_block(pools, b, ut, t, lanes)
+            deltas[b.ccls].index_add_(0, ut.dst[t][lanes].reshape(-1),
                                       C.reshape(-1, b.c))
+        if group is not None:
+            for d in deltas:
+                group.psum(d)
         for ci in range(self.ncls):
             wins[ci].sub_(deltas[ci][:seg.wslice[ci]])
 
@@ -607,11 +662,55 @@ class SupernodalExecutor(graphs.ProgramHost):
                 delta[off:off + b.P * b.H] += diff.view(-1, c)
             win += delta
 
+    def _finalize_shard(self, wins, seg, tabs, t, group, groups):
+        """``_finalize`` in one rank of ``group`` (the JAX ``axis_name``
+        branch): each bucket's lanes are owner-strided, lane l on rank
+        l % G, so the rank factors the lanes rank, rank + G, ... of the
+        (replicated) pre-finalize window, places their diff back at stride
+        G in a per-class delta, and one ``psum`` of that delta merges the
+        ranks.  ``groups`` holds, per class, the runs of buckets batched
+        into one ``chol_inverse`` call (``chol_groups`` at G).  The rank's
+        lanes below cnt are a prefix of its own lanes, so
+        ``dense.finalize_diff`` masks them with that prefix."""
+        g, G = group.rank, group.size
+        for ci, c in enumerate(self.classes):
+            if not groups[ci]:
+                continue
+            win = wins[ci]
+            delta = torch.zeros_like(win)
+            for grp in groups[ci]:
+                blks, ws = [], []
+                for k in grp:
+                    b, ft = seg.fin[k], tabs.fin[k]
+                    off = int(ft.boff[t])
+                    blks.append(win[off:off + b.P * b.H].view(
+                        b.P // G, G, b.H, c)[:, g])
+                    ws.append(ft.w[t].view(b.P // G, G)[:, g])
+                D = dense.masked_spd(torch.cat([x[:, :c, :] for x in blks]),
+                                     torch.cat(ws), c, self.dtype)
+                L, Linv = chol_inverse(D)
+                lo = 0
+                for k, blk, w in zip(grp, blks, ws):
+                    b, ft = seg.fin[k], tabs.fin[k]
+                    hi = lo + blk.shape[0]
+                    own_cnt = max(0, -(-(int(ft.cnt[t]) - g) // G))
+                    diff = dense.finalize_diff(blk, w, own_cnt, L[lo:hi],
+                                               Linv[lo:hi])
+                    lo = hi
+                    off = int(ft.boff[t])
+                    delta[off:off + b.P * b.H].view(
+                        b.P // G, G, b.H, c)[:, g] += diff
+            win += group.psum(delta)
+
     # ------------------------------------------------------------ factor
-    def _step(self, pools, seg, tabs, t):
-        wins = [self._rows_view(pools[ci], ci, int(tabs.rlo[ci, t]),
+    def _windows(self, pools, seg, tabs, t):
+        """Each class's row window of step t, a view into its pool."""
+        return [self._rows_view(pools[ci], ci, int(tabs.rlo[ci, t]),
                                 seg.wslice[ci])
                 for ci in range(self.ncls)]
+
+    def _step(self, pools, seg, tabs, t):
+        wins = self._windows(pools, seg, tabs, t)
         self._apply_updates(pools, wins, seg, tabs, t)
         self._finalize(wins, seg, tabs, t)
 
@@ -676,20 +775,14 @@ class SupernodalExecutor(graphs.ProgramHost):
                                b.P * b.H).view(b.P, b.H, b.c)
 
     def _inv_blk(self, blk, w, c):
-        """The diag block's triangular inverse from the pool: strict lower
-        = transpose of the Linv^T stored in the strict upper triangle by
-        ``_finalize``, diagonal = 1/l_ii (zero on padded columns)."""
-        ar = self._ar(c)
-        i = ar[None, :, None]
-        j = ar[None, None, :]
-        wv = w[:, None, None]
-        top = blk[:, :c, :]
-        strict = top.transpose(1, 2).masked_fill(
-            ~((i > j) & (i < wv) & (j < wv)), 0)
-        dvec = torch.diagonal(top, dim1=1, dim2=2)
-        valid = ar[None, :] < w[:, None]
-        dinv = torch.where(valid, 1.0 / torch.where(valid, dvec, 1.0), 0.0)
-        return strict + torch.diag_embed(dinv)
+        """The diag block's triangular inverse from the pool
+        (``inv_blk``)."""
+        return inv_blk(blk, w, self._ar(c))
+
+    def _own_mask(self, P, group):
+        """(P, 1) bool: the bucket lanes this rank of ``group`` solves,
+        lane % G == rank (the finalize's owner striding)."""
+        return (self._ar(P) % group.size == group.rank)[:, None]
 
     def _diag_tri(self, blk, w, c):
         """The solve-ready lower triangle of a factored panel top: the
@@ -742,8 +835,11 @@ class SupernodalExecutor(graphs.ProgramHost):
     def _vec(self, b):
         return self._check_vec(b).to(device=self.device, dtype=self.dtype)
 
-    def _solve_lower_impl(self, pools, b_vec):
-        """Forward substitution over the wavefront schedule."""
+    def _solve_lower_impl(self, pools, b_vec, group=None):
+        """Forward substitution over the wavefront schedule.  With
+        ``group`` each rank solves its owner-strided lanes and adds its
+        x entries and right-hand-side updates; one ``psum`` of each per
+        level step merges the ranks (JAX: the ``axis_name`` branch)."""
         n = self.plan.n
         zero1 = torch.zeros(1, dtype=self.dtype, device=self.device)
         x = torch.zeros(n + 1, dtype=self.dtype, device=self.device)
@@ -759,6 +855,9 @@ class SupernodalExecutor(graphs.ProgramHost):
                     arc = self._ar(b.c)
                     cidx = torch.clamp(ft.cols0[t][:, None] + arc, max=n)
                     colv = arc[None, :] < w[:, None]
+                    if group is not None:
+                        own = self._own_mask(b.P, group)
+                        colv = colv & own
                     bvec = bc[cidx] * colv
                     xs_ = torch.bmm(Linv, bvec[:, :, None])[:, :, 0] * colv
                     # same-level panels' columns are disjoint and start
@@ -767,9 +866,14 @@ class SupernodalExecutor(graphs.ProgramHost):
                                   xs_.masked_fill(~colv, 0).reshape(-1))
                     y = torch.bmm(blk, xs_[:, :, None])[:, :, 0]
                     below = self._ar(b.H)[None, :] >= w[:, None]
+                    if group is not None:
+                        below = below & own
                     ridx = torch.where(below, ft.rows[t], n)
                     dbc.index_add_(0, ridx.reshape(-1),
                                    (-(y * below)).reshape(-1))
+                if group is not None:
+                    group.psum(dx)
+                    group.psum(dbc)
                 # the pad slot n is cleared by a fill: an element set
                 # copies a host scalar, which a capture refuses
                 x = x + dx
@@ -778,8 +882,10 @@ class SupernodalExecutor(graphs.ProgramHost):
                 bc[n:].zero_()
         return x[:n]
 
-    def _solve_upper_impl(self, pools, b_vec):
-        """Backward substitution: the schedule in reverse."""
+    def _solve_upper_impl(self, pools, b_vec, group=None):
+        """Backward substitution: the schedule in reverse.  With ``group``
+        each rank solves its owner-strided lanes and one ``psum`` of dx
+        per level step merges them."""
         n = self.plan.n
         zero1 = torch.zeros(1, dtype=self.dtype, device=self.device)
         x = torch.zeros(n + 1, dtype=self.dtype, device=self.device)
@@ -799,11 +905,15 @@ class SupernodalExecutor(graphs.ProgramHost):
                     arc = self._ar(b.c)
                     cidx = torch.clamp(ft.cols0[t][:, None] + arc, max=n)
                     colv = arc[None, :] < w[:, None]
+                    if group is not None:
+                        colv = colv & self._own_mask(b.P, group)
                     rhs = (bp[cidx] - tt) * colv
                     xs_ = torch.bmm(Linv.transpose(1, 2),
                                     rhs[:, :, None])[:, :, 0] * colv
                     dx.index_add_(0, torch.where(colv, cidx, n).reshape(-1),
                                   xs_.masked_fill(~colv, 0).reshape(-1))
+                if group is not None:
+                    group.psum(dx)
                 x = x + dx
                 x[n:].zero_()
         return x[:n]

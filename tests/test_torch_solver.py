@@ -138,7 +138,9 @@ def test_chol_inverse_dispatch_cpu():
 def test_package_imports_no_jax():
     """In a process where jax cannot be imported, the port imports,
     factorizes and solves, and loads no module of jax and none of the JAX
-    package (``parsy_bench_tpu`` or anything under it)."""
+    package (``parsy_bench_tpu`` or anything under it); the multi-device
+    tier imports, and its G = 2 factorize runs in two gloo ranks that
+    load neither."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -174,6 +176,13 @@ def test_package_imports_no_jax():
         "cli.main(['cholesky', 'gen:laplace2d:5', '--device', 'cpu',\n"
         "          '--iters', '1', '--tier', 'simplicial'])\n"
         "import parsy_bench_tpu_torch.core.io\n"
+        "import parsy_bench_tpu_torch.parallel\n"
+        "from parsy_bench_tpu_torch.parallel import comm, runs\n"
+        "from parsy_bench_tpu_torch.symbolic.dplan import build_dist_plan\n"
+        "dp = build_dist_plan(s.ap, s.parent, s.cc, 2, s.config)\n"
+        "r = comm.launch(runs.run_dist, 2, 'gloo', 'cpu',\n"
+        "                (dp, s.ap.data, 'float64'), timeout=240)\n"
+        "assert all(x['jax_free'] and x['psum_calls'] > 0 for x in r)\n"
         "bad = [m for m in sys.modules if (m.startswith(('jax', 'jaxlib',\n"
         "    'parsy_bench_tpu.')) or m == 'parsy_bench_tpu')\n"
         "    and sys.modules[m] is not None]\n"

@@ -21,13 +21,18 @@ string turned to ``"cpu"`` and these stand-ins:
 * the plan-shape checks print instead of raising, and the kernel shapes
   of phases 3 and 7 are cut to the small plan's;
 * the simplicial phase runs at laplace_3d(5) and the CLI (phase 15,
-  real subprocesses, on the CPU) on small generated matrices.
+  real subprocesses, on the CPU) on small generated matrices;
+* the multi-device phase (16) runs its rank processes for real, gloo on
+  the CPU, on the small plans; each rank installs the kernel stand-ins
+  above before it runs (``_rank_with_stubs``), so that its K1 counts are
+  what the card's would be.
 
 Every number it prints is a placeholder or a CPU time: it shows that the
 script runs through, not how fast anything is.
 """
 from __future__ import annotations
 
+import functools
 import os
 import sys
 
@@ -41,6 +46,7 @@ from parsy_bench_tpu_torch import CholeskySolver, SolverConfig, probes  # noqa
 from parsy_bench_tpu_torch.core import generate  # noqa: E402
 from parsy_bench_tpu_torch.ops import (build, dense, graphs,  # noqa: E402
                                        kernels, supernodal)
+from parsy_bench_tpu_torch.parallel import comm  # noqa: E402
 
 #: kernel runs, replays included (what a profiler would see)
 EXECUTED = {name: 0 for name in kernels._WRAPPERS}
@@ -72,6 +78,19 @@ def _stub_kernels():
     build.build = lambda: "(kernels not built: CPU rehearsal)"
     build.build_log = lambda so: ""
     kernels._load = lambda: None
+
+
+def _rank_with_stubs(fn, group, *args):
+    """A rank of phase 16: the kernel stand-ins installed in this process
+    too, then the rank's function (pickled by its path in this module)."""
+    _stub_kernels()
+    return fn(group, *args)
+
+
+def _stub_launch():
+    launch = comm.launch
+    comm.launch = lambda fn, *a, **kw: launch(
+        functools.partial(_rank_with_stubs, fn), *a, **kw)
 
 
 def _program_run(self):
@@ -157,6 +176,7 @@ def main() -> int:
     _stub_kernels()
     _stub_cuda()
     _stub_probes()
+    _stub_launch()
     path = os.path.join(ROOT, "chip_smoke.py")
     with open(path) as f:
         src = f.read()
@@ -169,6 +189,11 @@ def main() -> int:
         src = src.replace(old, new)
     ns = {"__name__": "chip_smoke_rehearsal", "__file__": path}
     exec(compile(src, path, "exec"), ns)
+    for name in ("SIMPLICIAL_GRID", "CLI_RUNS", "K1_SHAPES", "K1_SMALL",
+                 "K2_SHAPES", "DIST_GROUPS", "SHARDED_G",
+                 "_multi_device_phase", "_card", "_device_ops"):
+        if name not in ns:
+            raise AssertionError(f"chip_smoke.py no longer defines {name}")
     ns["_card"] = lambda: "CPU rehearsal, no card"
     ns["_device_ops"] = _device_ops
     # the kernel shapes of phases 3 and 7, cut to the small plan's
