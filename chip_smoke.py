@@ -109,7 +109,8 @@ Phases, each of which raises on failure (nothing is caught):
    5, two factorizations within 1e-6 of their scale, the factor residual
    < 1e-3 and the solve residual < 1e-3;
 15. the CLI (``CLI_RUNS``) as subprocesses on the card: each must exit 0
-   and verify;
+   and verify (the ``cholesky`` run with ``--profile``, whose line must
+   carry the model's summary);
 16. the multi-device tier (``parallel/``) in G rank processes
    (``parallel/comm.launch``), all on the first card with the gloo
    backend (NCCL with one card per rank only where the machine has G
@@ -132,14 +133,36 @@ Phases, each of which raises on failure (nothing is caught):
    medians (host clock, synchronized), each rank's device busy ms of its
    first factorize (torch.profiler in the rank).  A rank that raises or
    hangs fails the phase.  These walls come from host-staged collectives among ranks
-   that share one card: no multi-GPU figure.
+   that share one card: no multi-GPU figure;
+17. the last single-device slice on phase 4's matrix: a second analyze
+   with ``dense_top_cols=DENSE_TOP_COLS`` and ``verify=True`` (its
+   ``verify_s``; ``verify_plan``'s stats on it and on phase 4's plan; the
+   top's t, first level and ``solve_nseg``, Tinv MB, the aligned-operand
+   pool's MB per executor); four forward-solve variants: phase 4's
+   executor (no top, no pool), one on phase 4's plan with the pool
+   (``gpool_mb=GPOOL_MB``), the top plan's, and the top plan with the
+   pool, each pool on; the top plan's factorize with the counts at 0
+   before (K1 twice the plan's calls, once per replay; pools within 1e-6
+   of phase 4's scale); ``top_inverse`` alone with max|T Tinv - I| beside
+   ``torch.linalg.solve_triangular(T, I)``; per variant ``solve_prep``
+   (capture, nodes, replay) and ``solve_lower`` with b = L*1 (median of 5,
+   ``solve_loop`` per iteration, device operations and busy ms with the
+   heaviest by name; gates max|1 - x| < 1e-3 and within 1e-4 of phase 4's
+   fast solve), with the slab pool's byte floor; ``save_analysis`` and
+   ``from_artifact`` of phase 4's solver (times beside phase 4's analyze,
+   K1 counted in the restored factorize, pools within 1e-6); the
+   performance model fitted on ``profile_segments`` (``utils/calibrate``:
+   constants, R^2, each segment's relative error, ``factorize_cost``
+   under the committed ``ChipModel`` and under the fit against phase 4's
+   median, and the fit over the committed constants); peak memory.
 
 Output: JSON lines of each phase's numbers, the card line, one JSON line
 ``{"kernels": [...]}`` (K1, K2, P1, P2, P3, each with the launches of its
 path's run, its times, bound and yardstick; K1 and K2 also with their
 launches per replay from the capture and from the profiler; K1 also with
-its launches in each rank's factorize of phase 16 and its checks at the
-ranks' batch shapes) and, last,
+its launches in each rank's factorize of phase 16, its checks at the
+ranks' batch shapes and its launches in phase 17's factorizes) and,
+last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
 """
@@ -169,7 +192,7 @@ SIMPLICIAL_GRID = 20
 #: the CLI runs as subprocesses (``python -m parsy_bench_tpu_torch.cli``);
 #: each must exit 0 and verify.  ``--tier simplicial`` makes the last one
 #: run the coarsened schedule (the supernodal tier has no schedule)
-CLI_RUNS = (("cholesky", "gen:laplace3d:24", "--verify"),
+CLI_RUNS = (("cholesky", "gen:laplace3d:24", "--verify", "--profile"),
             ("trisolve", "gen:laplace3d:20"),
             ("trisolve", "gen:laplace3d:48", "--lower", "--tier",
              "simplicial", "--schedule", "coarsened"))
@@ -177,6 +200,11 @@ CLI_RUNS = (("cholesky", "gen:laplace3d:24", "--verify"),
 #: executors (ranks share the card unless it has one card per rank)
 DIST_GROUPS = (4, 2)
 SHARDED_G = 4
+#: phase 17: the dense top's column budget (the width at which the JAX
+#: package measured its dense top) and the aligned-operand pool's budget
+#: in MB (the plan's default ``gpool_mb``)
+DENSE_TOP_COLS = 4096
+GPOOL_MB = 2048
 #: the kernels' names as torch.profiler shows them (csrc/chol_inverse.cu,
 #: csrc/finalize_fused.cu)
 K1_NAMES = ("chol_inverse_warp_kernel", "chol_inverse_blocked_kernel")
@@ -499,9 +527,10 @@ def _captured_programs(torch, np, ex, solver, expected, med, prof4,
             raise AssertionError(f"solve_lower with b = L*1 after the "
                                  f"aliasing turns: max|1 - x| {err:.3e}")
         alias_err.append(err)
-    linv1 = ex.solve_prep(lx1)
+    prep1 = ex.solve_prep(lx1)
+    linv1 = prep1[1]
     keep_l = [x.clone() for x in linv1]
-    linv2 = ex.solve_prep(lx2)
+    linv2 = ex.solve_prep(lx2)[1]
     if not (all(torch.equal(x, y) for x, y in zip(linv1, keep_l))
             and not all(torch.equal(x, y) for x, y in zip(linv1, linv2))):
         raise AssertionError("solve_prep did not give each factor its own "
@@ -528,7 +557,7 @@ def _captured_programs(torch, np, ex, solver, expected, med, prof4,
     # solve_loop per iteration
     blv = ex._vec(b1)
     t_sc, t_se = _abba(torch, lambda: ex.solve_lower(lx1, b1),
-                       lambda: ex._solve_lower_fast_impl(lx1, blv, linv1),
+                       lambda: ex._solve_lower_fast_impl(lx1, blv, *prep1),
                        8)
     xl = ex.solve_loop(lx1, b1, 5)
     loop_err = float((xl - 1).abs().max())
@@ -539,7 +568,7 @@ def _captured_programs(torch, np, ex, solver, expected, med, prof4,
                      / 5 for _ in range(3))
     solve_progs = {k: dict(capture_s=ex.programs[k].capture_s,
                            nodes=ex.programs[k].nodes)
-                   for k in ("linv", "solve_lower_fast", "solve_spd")}
+                   for k in ("solve_prep", "solve_lower_fast", "solve_spd")}
 
     # per-segment device times (group=1 programs)
     t0 = time.perf_counter()
@@ -993,12 +1022,241 @@ def _cli_phase(np, card):
                            if ln.startswith("{")][-1])
         ok = (line.get("verified") if args[0] == "trisolve"
               else line["factor_residual"] < 1e-3
-              and line["solve_residual"] < 1e-3)
+              and line["solve_residual"] < 1e-3
+              and ("--profile" not in args or line["model"]["model_s"] > 0))
         if not ok or line["device"].split(":")[0] != "cuda":
             raise AssertionError(f"{' '.join(args)} did not verify on the "
                                  f"card: {line}")
         out.append(dict(args=list(args), process_s=wall, line=line))
     return dict(runs=out, card=card)
+
+
+def _variant_solve(torch, np, name, ex, lx, b_l, x_ref, card):
+    """Phase 17's record of one fast forward solve variant: ``solve_prep``
+    (capture seconds and nodes, its program's replay time, one call on new
+    pools), then ``solve_lower`` with b = L*1 (first call, median of 5),
+    ``solve_loop(lx, b, 5)`` per iteration, one solve under
+    torch.profiler, and the gates: max|1 - x| < 1e-3 and agreement with
+    phase 4's fast solve within 1e-4 of its scale."""
+    from parsy_bench_tpu_torch.probes import cuda_ms
+    lxc = tuple(p.clone() for p in lx)
+    first_prep_s, _ = _sync_s(torch, lambda: ex.solve_prep(lxc))
+    prog = ex.programs["solve_prep"]
+    prep_ms = cuda_ms(prog.run, 3)
+    prep_call_s, _ = _sync_s(torch, lambda: ex.solve_prep(lx))
+    first_s, x = _sync_s(torch, lambda: ex.solve_lower(lx, b_l))
+    times = sorted(_sync_s(torch, lambda: ex.solve_lower(lx, b_l))[0]
+                   for _ in range(5))
+    x = x.cpu().numpy()
+    err = float(np.abs(x - 1.0).max())
+    scale = float(np.abs(x_ref).max())
+    diff = float(np.abs(x - x_ref).max())
+    if not (err < 1e-3 and diff <= 1e-4 * scale):
+        raise AssertionError(f"{name}: solve_lower with b = L*1: max|1 - x| "
+                             f"{err:.3e} (bar 1e-3), {diff:.3e} off phase "
+                             f"4's fast solve (bar 1e-4 * {scale:.3e})")
+    loop = sorted(_sync_s(torch, lambda: ex.solve_loop(lx, b_l, 5))[0] / 5
+                  for _ in range(3))
+    xl = ex.solve_loop(lx, b_l, 5).cpu().numpy()
+    loop_err = float(np.abs(xl - 1.0).max())
+    if not loop_err < 1e-3:
+        raise AssertionError(f"{name}: solve_loop with b = L*1: max|1 - x| "
+                             f"{loop_err:.3e}")
+    bd = torch.as_tensor(b_l, device="cuda", dtype=ex.dtype)
+    prof = _device_ops(torch, lambda: ex.solve_lower(lx, bd), top=6)
+    fast = ex.programs["solve_lower_fast"]
+    rec = dict(
+        variant=name, top=ex._top is not None,
+        gpool_enabled=ex._gpool_enabled,
+        gpool_mb=getattr(ex, "_gpool_bytes", 0) / 1e6,
+        solve_prep_capture_s=prog.capture_s, solve_prep_nodes=prog.nodes,
+        solve_prep_first_call_s=first_prep_s, solve_prep_replay_ms=prep_ms,
+        solve_prep_call_s=prep_call_s,
+        solve_capture_s=fast.capture_s, solve_nodes=fast.nodes,
+        solve_first_s=first_s,
+        solve_s_min_med_max=[times[0], times[2], times[-1]],
+        solve_loop_s_per_iter=loop, solve_max_err=err,
+        solve_loop_max_err=loop_err, vs_phase4_max_abs_diff=diff,
+        vs_phase4_scale=scale, device_ops=prof["ops"],
+        device_busy_ms=prof["busy_ms"], device_span_ms=prof["span_ms"],
+        idle_share_of_median_wall=1 - prof["busy_ms"] / (times[2] * 1e3),
+        by_name=prof["by_name"], card=card)
+    if ex._gpool_enabled:
+        # a slab-fed solve reads every slab once: its byte floor
+        rec["gpool_read_floor_ms"] = ex._gpool_bytes / PEAK_BYTES_PER_S * 1e3
+    return rec
+
+
+def _last_slice_phase(torch, np, kernels, a, cfg, solver, analyze_s, med,
+                      b_l, x_fast, card):
+    """Phase 17 (the module docstring): the dense top, the aligned-operand
+    pool, ``verify_plan``, the analysis artifacts and the performance
+    model's fit, on phase 4's matrix."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from parsy_bench_tpu_torch import CholeskySolver
+    from parsy_bench_tpu_torch.ops.supernodal import SupernodalExecutor
+    from parsy_bench_tpu_torch.probes import cuda_ms
+    from parsy_bench_tpu_torch.symbolic.verify import verify_plan
+    from parsy_bench_tpu_torch.utils import calibrate, perfmodel
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ex, plan = solver.executor, solver.plan
+    expected = ex.chol_calls_per_factorize
+    out = dict(card=card)
+
+    # ---- analyze with a dense top, verify=True
+    t0 = time.perf_counter()
+    tsolver = CholeskySolver(a, cfg.replace(dense_top_cols=DENSE_TOP_COLS,
+                                            verify=True))
+    out["top_analyze_s"] = time.perf_counter() - t0
+    out["top_timings"] = tsolver.timings
+    tplan, tex = tsolver.plan, tsolver.executor
+    top = tplan.top
+    if top is None or not 0 < tplan.solve_nseg < len(tplan.segments):
+        raise AssertionError(f"dense_top_cols={DENSE_TOP_COLS} gave no "
+                             f"partial dense top (solve_nseg "
+                             f"{tplan.solve_nseg} of {len(tplan.segments)})")
+    t0 = time.perf_counter()
+    out["verify_top_plan"] = verify_plan(tplan)
+    out["verify_top_plan_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["verify_phase4_plan"] = verify_plan(plan)
+    out["verify_phase4_plan_s"] = time.perf_counter() - t0
+    out.update(dense_top_cols=DENSE_TOP_COLS, t=int(top.t),
+               lev0=int(top.lev0), solve_nseg=int(tplan.solve_nseg),
+               segments=len(tplan.segments), top_update_buckets=len(
+                   top.supd), tinv_mb=top.t ** 2 * 4 / 1e6)
+    variants = {
+        "top off, pool off (phase 4)": (ex, solver),
+        "top off, pool on": (SupernodalExecutor(dataclasses.replace(
+            plan, gpool_mb=GPOOL_MB), "float32", "cuda"), solver),
+        "top on, pool off": (tex, tsolver),
+        "top on, pool on": (SupernodalExecutor(dataclasses.replace(
+            tplan, gpool_mb=GPOOL_MB), "float32", "cuda"), tsolver)}
+    for name, (vex, _) in variants.items():
+        if "pool on" in name and not vex._gpool_enabled:
+            raise AssertionError(f"{name}: the aligned-operand pool is off "
+                                 f"at a {GPOOL_MB} MB budget "
+                                 f"({vex._gpool_bytes / 2**20:.1f} MiB)")
+    out["gpool_mb"] = {k: v[0]._gpool_bytes / 1e6
+                       for k, v in variants.items()}
+    print("phase 17 plan", json.dumps(out))
+
+    # ---- the top plan's factorize: the path's run, counts at 0 before
+    kernels.reset_launch_counts()
+    warm_s, _ = _sync_s(torch, tsolver.factorize)
+    times = sorted(_sync_s(torch, tsolver.factorize)[0] for _ in range(3))
+    launches = kernels.cholesky_inverse_cuda.launches
+    per_replay = tex.programs["factorize"].launches["cholesky_inverse_cuda"]
+    if (launches, per_replay) != (2 * expected, expected):
+        raise AssertionError(f"top plan: K1 counted {launches} launches and "
+                             f"{per_replay} per replay; the plan implies "
+                             f"{2 * expected} and {expected}")
+    pscale = max(float(p.abs().max()) for p in solver.lx)
+    pdiff = max(float((p - q).abs().max())
+                for p, q in zip(tsolver.lx, solver.lx))
+    if not pdiff <= 1e-6 * pscale:
+        raise AssertionError(f"top plan's pools differ from phase 4's by "
+                             f"{pdiff:.3e} > 1e-6 * {pscale:.3e}")
+    out["top_factorize"] = dict(
+        warm_s=warm_s, s_min_med_max=[times[0], times[1], times[-1]],
+        k1_launches_run=launches, k1_launches_per_replay=per_replay,
+        pools_vs_phase4_max_abs_diff=pdiff, pool_scale=pscale,
+        pools_bit_equal=all(torch.equal(p, q)
+                            for p, q in zip(tsolver.lx, solver.lx)))
+    print("phase 17 top factorize", json.dumps(out["top_factorize"]))
+
+    # ---- top_inverse alone, against the library's triangular solve
+    first_s, tinv = _sync_s(torch, lambda: tex.top_inverse(tsolver.lx))
+    T = tex._top_dense(tsolver.lx)
+    eye = torch.eye(top.t, device="cuda", dtype=T.dtype)
+    inv_err = float((T.double() @ tinv.double()
+                     - eye.double()).abs().max())
+    lib = torch.linalg.solve_triangular(T, eye, upper=False)
+    lib_err = float((T.double() @ lib.double() - eye.double()).abs().max())
+    out["top_inverse"] = dict(
+        first_call_s=first_s, capture_s=tex.programs["top_inverse"].capture_s,
+        nodes=tex.programs["top_inverse"].nodes,
+        replay_ms=cuda_ms(tex.programs["top_inverse"].run, 3),
+        max_T_Tinv_minus_I=inv_err, tinv_max_abs=float(tinv.abs().max()),
+        library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
+            T, eye, upper=False), 3),
+        library="torch.linalg.solve_triangular(T, I)",
+        library_max_T_X_minus_I=lib_err,
+        tinv_vs_library_max_abs_diff=float((tinv - lib).abs().max()))
+    print("phase 17 top_inverse", json.dumps(out["top_inverse"]))
+
+    # ---- solve_prep and the fast solve of each variant
+    out["solves"] = []
+    for name, (vex, vs) in variants.items():
+        rec = _variant_solve(torch, np, name, vex, vs.lx, b_l, x_fast, card)
+        print("phase 17 solve", json.dumps(rec))
+        out["solves"].append(rec)
+
+    # ---- the analysis artifact of phase 4's solver
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "analysis.pbt")
+        save_s, _ = _sync_s(torch, lambda: solver.save_analysis(path))
+        art_mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        restored = CholeskySolver.from_artifact(a, path, cfg)
+        load_s = time.perf_counter() - t0
+    if not np.array_equal(restored.perm, solver.perm):
+        raise AssertionError("the restored solver's permutation differs")
+    kernels.reset_launch_counts()
+    rwarm_s, _ = _sync_s(torch, restored.factorize)
+    rlaunches = kernels.cholesky_inverse_cuda.launches
+    if rlaunches != 2 * expected:
+        raise AssertionError(f"restored solver: K1 counted {rlaunches} "
+                             f"launches; the plan implies {2 * expected}")
+    rdiff = max(float((p - q).abs().max())
+                for p, q in zip(restored.lx, solver.lx))
+    if not rdiff <= 1e-6 * pscale:
+        raise AssertionError(f"restored solver's pools differ from phase "
+                             f"4's by {rdiff:.3e} > 1e-6 * {pscale:.3e}")
+    out["artifact"] = dict(
+        save_s=save_s, artifact_mb=art_mb, from_artifact_s=load_s,
+        phase4_analyze_s=analyze_s, warm_factorize_s=rwarm_s,
+        k1_launches_run=rlaunches, pools_vs_phase4_max_abs_diff=rdiff,
+        pools_bit_equal=all(torch.equal(p, q)
+                            for p, q in zip(restored.lx, solver.lx)))
+    del restored
+    print("phase 17 artifact", json.dumps(out["artifact"]))
+
+    # ---- the performance model: fit on this run's segment times
+    t0 = time.perf_counter()
+    rows = calibrate.collect(solver)
+    fitted = calibrate.fit(rows)
+    fit_s = time.perf_counter() - t0
+    consts = {c: fitted[c] for c in calibrate.COLUMNS}
+    committed = perfmodel.ChipModel()
+    chip_fit = dataclasses.replace(committed, name="this run's fit",
+                                   **consts)
+    pred = [perfmodel._segment_time(r, chip_fit) for r in rows]
+    out["model"] = dict(
+        fit_s=fit_s, fitted={k: (None if np.isinf(v) else float(v))
+                             for k, v in fitted.items()},
+        fitted_repr={c: repr(float(fitted[c])) for c in calibrate.COLUMNS},
+        segment_rel_err=[(p - r["median_s"]) / r["median_s"]
+                         for p, r in zip(pred, rows)],
+        segments_measured_s=[r["median_s"] for r in rows],
+        committed=dataclasses.asdict(committed),
+        fit_over_committed={c: (float(consts[c] / getattr(committed, c))
+                                if getattr(committed, c) not in (0, np.inf)
+                                and np.isfinite(consts[c]) else None)
+                            for c in calibrate.COLUMNS},
+        model_s_committed=perfmodel.factorize_cost(plan).model_s,
+        model_s_fit=perfmodel.factorize_cost(plan, chip_fit).model_s,
+        measured_factorize_median_s=med,
+        segments_measured_sum_s=sum(r["median_s"] for r in rows))
+    print("phase 17 model", json.dumps(out["model"]))
+    out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def main() -> int:
@@ -1309,11 +1567,11 @@ def main() -> int:
 
     # ---- 9. the forward solves -----------------------------------------
     prep_s, _ = _sync_s(torch, lambda: ex._linv_pools(solver.lx))
-    linv = ex.solve_prep(solver.lx)
+    prep = ex.solve_prep(solver.lx)
     bl = ex._vec(b_l)
 
     def fast():
-        return ex._solve_lower_fast_impl(solver.lx, bl, linv)
+        return ex._solve_lower_fast_impl(solver.lx, bl, *prep)
 
     def leveled():
         return ex._solve_lower_impl(solver.lx, bl)
@@ -1458,7 +1716,15 @@ def main() -> int:
         phase_s=multi["phase_s"], card=card)))
     del simp
 
-    # ---- 17. result ----------------------------------------------------
+    # ---- 17. the dense top, the aligned-operand pool, verify_plan, the
+    # analysis artifacts and the performance model on phase 4's matrix --
+    last = _last_slice_phase(torch, np, kernels, a, cfg, solver, analyze_s,
+                             med, b_l, x_fast, card)
+    print("phase 17", json.dumps(dict(
+        phase_s=last["phase_s"], peak_allocated_gb=last["peak_allocated_gb"],
+        reserved_gb=last["reserved_gb"], card=card)))
+
+    # ---- 18. result ----------------------------------------------------
     print(card)
     k2_path = [r for r in k2 if r["shape"][2] <= 64]
     rank_k1 = [r["k1_checks"] for r in multi["runs"] if "k1_checks" in r]
@@ -1503,7 +1769,15 @@ def main() -> int:
                             r["k1_launches_per_factorize_by_rank"]
                             for r in multi["runs"] if "k1_checks" in r},
              rank_shapes={f"{r['executor']} G={r['G']}": r["k1_checks"]
-                          for r in multi["runs"] if "k1_checks" in r}),
+                          for r in multi["runs"] if "k1_checks" in r},
+             # phase 17: the dense-top plan's and the restored artifact's
+             # factorize, each counted from 0 (warm-up and capture)
+             phase17_launches=dict(
+                 top_plan_factorize=last["top_factorize"]["k1_launches_run"],
+                 top_plan_per_replay=last["top_factorize"][
+                     "k1_launches_per_replay"],
+                 restored_artifact_factorize=last["artifact"][
+                     "k1_launches_run"])),
         dict(name="finalize_fused", route="cuda",
              source="parsy_bench_tpu_torch/csrc/finalize_fused.cu",
              replaces="parsy_bench_tpu/ops/pallas_kernels.py:235",

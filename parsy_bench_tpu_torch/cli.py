@@ -24,8 +24,10 @@ MakingLowerHalf.cpp.
 there is no fallback to the CPU.  Times are host seconds around calls that
 end in ``torch.cuda.synchronize()`` on the card.  The first timed call
 captures the executor's program (``compile_s``), as a JAX program compiles
-once.  ``--profile`` needs ``utils/perfmodel.py``, which is not ported yet
-(ROADMAP §1): it exits non-zero.
+once.  ``cholesky --profile`` adds the performance model's summary of the
+plan (``utils/perfmodel.factorize_cost``, under the card's fitted
+``ChipModel``) as ``model``; ``trisolve`` accepts ``--profile`` and
+changes nothing, as in the JAX driver.
 
 Matrix specs: a MatrixMarket path, or ``gen:<kind>:<size>`` with kinds
 laplace2d / laplace3d / femgrid / randspd (``core/generate.py``).
@@ -62,17 +64,10 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _refuse_profile(args) -> None:
-    if args.profile:
-        raise SystemExit("--profile needs utils/perfmodel.py, which the "
-                         "port does not have yet (ROADMAP §1, item 12)")
-
-
 def cmd_cholesky(args) -> None:
     from parsy_bench_tpu_torch.config import SolverConfig
     from parsy_bench_tpu_torch.models import CholeskySolver
 
-    _refuse_profile(args)
     a = load_matrix(args.matrix)
     ordering, given = args.ordering, None
     if args.ordering_file:
@@ -115,6 +110,9 @@ def cmd_cholesky(args) -> None:
         out["nsuper"] = s.plan.layout.part.nsuper
         out["table_mb"] = round(s.plan.table_bytes() / 1e6, 1)
         out["pool_mb"] = round(s.plan.pool_elems() * 4 / 1e6, 1)
+        if args.profile:
+            from parsy_bench_tpu_torch.utils.perfmodel import factorize_cost
+            out["model"] = factorize_cost(s.plan).summary()
     if args.verify:
         out["factor_residual"] = float(s.factor_residual())
         b = a.spd_rhs_for_ones()
@@ -129,7 +127,6 @@ def cmd_trisolve(args) -> None:
                                                 rhs_init_trisolve)
     from parsy_bench_tpu_torch.models import CholeskySolver, TriangularSolver
 
-    _refuse_profile(args)
     a = load_matrix(args.matrix)
     if args.lower:
         # the input IS the (general, possibly non-chordal) lower factor —
@@ -241,7 +238,8 @@ def main(argv=None) -> None:
         q.add_argument("--iters", type=int, default=5)
         q.add_argument("--verify", action="store_true")
         q.add_argument("--profile", action="store_true",
-                       help="not ported yet: exits non-zero")
+                       help="cholesky: add the performance model's "
+                            "summary of the plan")
         q.add_argument("--device", default="cuda",
                        help="device of the numeric phase: cuda (default), "
                             "cuda:<i> or cpu")

@@ -28,10 +28,11 @@ class SolverConfig:
     #: relaxed-amalgamation thresholds: merge child into parent when
     #: nchild_cols <= nrelax[0], or zeros-fraction <= zrelax[k] at size
     #: breakpoints nrelax[k] (CHOLMOD-style rule, choleskyTest01.cpp:111-112).
-    #: Defaults are ~2x the reference's (4,16,48)/(0.8,0.1,0.05): on TPU
-    #: extra explicit zeros ride the MXU for free while bigger panels cut
-    #: update-lane and row-movement counts (measured +20% factorize
-    #: throughput at n=1e5, scripts/scale_test.py r3).
+    #: Defaults are ~2x the reference's (4,16,48)/(0.8,0.1,0.05): bigger
+    #: panels carry more explicit zeros through the batched products and
+    #: cut update-lane and row-movement counts.  The defaults are the JAX
+    #: package's, chosen on its TPU; the card's factorize time at these
+    #: defaults is in PERF.md §5.
     nrelax: Tuple[int, int, int] = (8, 32, 96)
     zrelax: Tuple[float, float, float] = (0.9, 0.2, 0.1)
     #: hard cap on supernode width; wider supernodes are split into panels of
@@ -54,9 +55,9 @@ class SolverConfig:
     q_classes: Tuple[int, ...] = (16, 48, 136)
     #: how per-step update contributions land on the delta window:
     #: "gather" inverts the scatter at inspection time into static
-    #: gathers + ladder sums + one dense take (scatter-free — ~25 ns per
-    #: scattered row measured vs ~1 ns per taken row; splan
-    #: _build_gather_tables); "scatter" keeps the index scatter-add.
+    #: gathers + ladder sums + one dense take (scatter-free; splan
+    #: _build_gather_tables); "scatter" keeps the index scatter-add.  The
+    #: card's factorize times in both modes: PERF.md §5.
     #: Single-shard plans only — sharded/distributed executors always
     #: scatter (their deltas ride collectives).
     update_delta: str = "gather"
@@ -72,9 +73,9 @@ class SolverConfig:
     #: slack-based level placement: delay supernodes below their update
     #: targets to flatten per-bucket lane histograms (reference slack
     #: freedom, InspectionLevel_06.h:118-132).  Cuts padded finalize
-    #: lanes 76% at n=32k, but measured 12% SLOWER factorize on the real
-    #: chip at n=1e5 (update-bucket peaks grow when sources move later,
-    #: RESULTS_r04) — off by default, kept as a measured knob.
+    #: lanes 76% at n=32k, but update-bucket peaks grow when sources move
+    #: later; off by default, as in the JAX package (not measured on the
+    #: card).
     slack_placement: bool = False
     #: dense trailing-solve block ("top"): the thin top levels of the
     #: etree (the root-separator panel chains — 42 of 64 levels at n=1e5
@@ -82,12 +83,9 @@ class SolverConfig:
     #: triangular-inverse GEMV per solve, the MXU-native form of the
     #: reference's peeled last level (H2LeveledBlockedLsolve_Peeled,
     #: Triangular_BCSC.h:238: last level serial with multithreaded BLAS).
-    #: Max columns absorbed (Tinv memory = cols^2 * 4 bytes); 0 disables.
-    #: Measured on-chip at n=110k (r5): NEUTRAL once the merged per-class
-    #: diagonal solve landed (21.9 ms off vs 22.4 ms at 4096 — the
-    #: absorbed thin levels were already cheap, and the single-step
-    #: mega-buckets pay the same update traffic the levels did); off by
-    #: default at bench scale, revisited per-size by scripts/large_run.py.
+    #: Max columns absorbed (Tinv memory = cols^2 * 4 bytes); 0 disables
+    #: (the default).  The card's solve times with and without it:
+    #: PERF.md §5.
     dense_top_cols: int = 0
     #: absorb a level range into the dense top only while its levels are
     #: thin (<= this many panels per level) — fat bottom levels solve
@@ -96,12 +94,10 @@ class SolverConfig:
     #: blocked-trisolve aligned-operand pool budget (MB): solve_prep
     #: precomputes each update pair's column-aligned overlap block
     #: G = S @ B_raw once per factorization, so every solve step is one
-    #: contiguous slab read + one batched (c,K)@(K,) einsum + one row
-    #: scatter per bucket.  Measured on-chip at n=110k (r5): 2x SLOWER
-    #: than the on-the-fly one-hot alignment (42.5 vs 21.9 ms) — XLA
-    #: lowers the slab-fed batched matvec worse than the fused
-    #: gather+matmul chain it replaces — so 0 (disabled) by default;
-    #: kept as a measured knob.  0 = always align on the fly.
+    #: contiguous slab read + one batched (c,K)@(K,) product + one row
+    #: scatter per bucket, when the pool's bytes fit the budget.  0 (the
+    #: default) keeps it off for any plan with pairs to align.
+    #: The card's solve times with and without it: PERF.md §5.
     solve_gpool_mb: int = 0
     #: general-DAG trisolve schedule: "wavefront" (one batched step per
     #: level, H1), "coarsened" (dense W-column window steps, the DAG-LBC
@@ -119,7 +115,7 @@ class SolverConfig:
     tier: str = "simplicial"
 
     # ---- numerics ----
-    #: dtype of the numeric phase ("float32" on TPU; "float64" runs on CPU).
+    #: dtype of the numeric phase ("float32" or "float64").
     dtype: str = "float32"
     #: iterative-refinement sweeps applied after triangular solves to recover
     #: accuracy lost to f32 (the reference is f64 end-to-end).

@@ -109,9 +109,28 @@ def save_artifact(path: str, obj, meta: Optional[dict] = None) -> None:
     os.replace(tmp, path)
 
 
+class _PortUnpickler(pickle.Unpickler):
+    """Unpickles an artifact without importing the JAX package: a class of
+    ``parsy_bench_tpu`` (not of ``parsy_bench_tpu_torch``) is refused."""
+
+    def find_class(self, module, name):
+        top = module.split(".")[0]
+        if top == "parsy_bench_tpu":
+            raise ValueError(
+                f"analysis artifact holds {module}.{name}: it was written "
+                f"by the JAX package (parsy_bench_tpu); re-run the analysis "
+                f"with the port (parsy_bench_tpu_torch CholeskySolver(...)"
+                f".save_analysis) to regenerate it")
+        return super().find_class(module, name)
+
+
 def load_artifact(path: str):
+    """(obj, meta) of an artifact ``save_artifact`` wrote.  It is unpickled
+    (load only artifacts this program wrote); one written by the JAX
+    package raises ``ValueError`` before anything of that package is
+    imported."""
     with open(path, "rb") as f:
-        payload = pickle.load(f)
+        payload = _PortUnpickler(f).load()
     fmt = payload["meta"].get("format", 0)
     if fmt not in COMPATIBLE_FORMATS:
         raise ValueError(

@@ -13,12 +13,14 @@ methods are numpy.
 from __future__ import annotations
 
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from parsy_bench_tpu_torch.config import SolverConfig
 from parsy_bench_tpu_torch.core.csc import CSC
+from parsy_bench_tpu_torch.core.io import load_artifact, save_artifact
 from parsy_bench_tpu_torch.symbolic.colcounts import (col_counts,
                                                       symbolic_pattern)
 from parsy_bench_tpu_torch.symbolic.etree import (etree, postorder,
@@ -29,6 +31,7 @@ from parsy_bench_tpu_torch.ops.supernodal import (SupernodalExecutor,
                                                   resolve_device)
 from parsy_bench_tpu_torch.symbolic.plan import dag_levels, plan_from_pattern
 from parsy_bench_tpu_torch.symbolic.splan import build_supernodal_plan
+from parsy_bench_tpu_torch.symbolic.verify import verify_plan
 
 
 class NotPositiveDefiniteError(RuntimeError):
@@ -50,7 +53,9 @@ class CholeskySolver:
     pass ``device="cpu"`` for the plain versions of the kernels.
     ``fused_finalize`` (off by default) finalizes the classes of width
     <= 64 with one fused kernel per bucket (``SupernodalExecutor``; the
-    simplicial tier has no finalize and refuses it).
+    simplicial tier has no finalize and refuses it).  ``config.verify``
+    checks the supernodal plan with ``symbolic/verify.verify_plan`` before
+    the executor is built (``timings["verify_s"]``).
     """
 
     def __init__(self, a: CSC, config: SolverConfig | None = None, *,
@@ -62,10 +67,6 @@ class CholeskySolver:
                              f"simplicial")
         if fused_finalize and self.config.tier != "supernodal":
             raise ValueError("fused_finalize needs tier='supernodal'")
-        if self.config.verify:
-            raise NotImplementedError(
-                "verify=True: symbolic/verify.py is a later port (ROADMAP "
-                "'Modules to port', symbolic/verify.py)")
         if not a.is_lower():
             a = a.lower_half()
         self.a = a
@@ -100,6 +101,9 @@ class CholeskySolver:
             self.plan = build_supernodal_plan(self.ap, self.parent, self.cc,
                                               None, self.config)
             _mark("plan_s")
+            if self.config.verify:
+                verify_plan(self.plan)
+                _mark("verify_s")
             self.executor = SupernodalExecutor(
                 self.plan, self.config.dtype, self.device,
                 fused_finalize=fused_finalize)
@@ -201,6 +205,70 @@ class CholeskySolver:
         """The numeric factor L (permuted ordering) as a host CSC."""
         return CSC(self.a.n, self.lpat.indptr.astype(np.int32),
                    self.lpat.indices.astype(np.int32), self._l_values())
+
+    # ------------------------------------------------- analysis caching
+    def save_analysis(self, path: str) -> None:
+        """Serialize the inspector output (permutation and plan), the
+        checkpointable symbolic artifact (the reference's cacheable
+        ordering, common/Util.h:187).  The lazy simplicial pattern is
+        saved only if it was built."""
+        save_artifact(path, {"perm": self.perm, "plan": self.plan,
+                             "lpat": self._lpat, "parent": self.parent,
+                             "cc": self.cc},
+                      meta={"n": self.a.n, "nnz": self.a.nnz,
+                            "tier": self.config.tier})
+
+    @classmethod
+    def from_artifact(cls, a: CSC, path: str,
+                      config: SolverConfig | None = None, *,
+                      device="cuda",
+                      fused_finalize: bool = False) -> "CholeskySolver":
+        """Restore a solver from a saved analysis, skipping the inspector
+        (ordering, symbolic, plan); ``a`` must have the pattern the
+        analysis was made for (a ``ValueError`` otherwise), and only its
+        values are used.  The artifact's tier wins over ``config``'s, with
+        a warning.  ``config.verify`` checks the restored plan
+        (``timings["verify_s"]``).  An artifact written by the JAX package
+        is refused (``core/io.load_artifact``)."""
+        obj, meta = load_artifact(path)
+        if meta.get("n") != a.n or meta.get("nnz") != a.lower_half().nnz:
+            raise ValueError(
+                f"artifact is for n={meta.get('n')}/nnz={meta.get('nnz')}, "
+                f"matrix has n={a.n}")
+        art_tier = meta.get("tier", "supernodal")
+        if config is not None and config.tier != art_tier:
+            warnings.warn(
+                f"artifact was analyzed for tier={art_tier!r}; overriding "
+                f"config tier={config.tier!r}", stacklevel=2)
+        self = cls.__new__(cls)
+        self.device = resolve_device(device)
+        self.config = (config or SolverConfig()).replace(tier=art_tier)
+        if fused_finalize and self.config.tier != "supernodal":
+            raise ValueError("fused_finalize needs tier='supernodal'")
+        self.a = a if a.is_lower() else a.lower_half()
+        self.perm = obj["perm"]
+        self.ap = self.a.permute(self.perm)
+        self.parent = obj["parent"]
+        self.cc = obj["cc"]
+        self._lpat = obj["lpat"]
+        self.timings = {}
+        self.plan = obj["plan"]
+        if self.config.tier == "supernodal":
+            if self.config.verify:
+                t0 = time.perf_counter()
+                verify_plan(self.plan)
+                self.timings["verify_s"] = round(time.perf_counter() - t0, 3)
+            self.executor = SupernodalExecutor(
+                self.plan, self.config.dtype, self.device,
+                fused_finalize=fused_finalize)
+        else:
+            self.executor = SimplicialExecutor(self.plan, self.config.dtype,
+                                               self.device)
+        self.lx = None
+        self._spd_ok = None
+        self._inv = np.empty(a.n, dtype=np.int64)
+        self._inv[self.perm] = np.arange(a.n)
+        return self
 
 
 def _pattern(l: CSC):

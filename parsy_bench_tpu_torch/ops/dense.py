@@ -10,7 +10,13 @@ Neumann product.  It is the plain version of the hand-written CUDA kernel
 tests and ``chip_smoke.py`` compare the kernel against it.  The same holds
 for ``finalize_fused``, the whole per-bucket finalize, and its kernel
 ``csrc/finalize_fused.cu``.  ``cholesky_inverse_panels`` computes the same
-function in the kernel's own block order (tests only).
+function in the kernel's own block order (tests only).  ``dense_tri_inv``
+inverts the one dense triangular block of a plan's dense top
+(``SupernodalExecutor.top_inverse``); ``finalize_panel``,
+``tri_lower_solve``, ``tri_lower_solve_t`` and ``tri_inverse`` complete
+the JAX module's set.  Their products are ``torch.bmm``/``torch.matmul``
+in full precision, as the JAX package's are XLA dots outside any Pallas
+kernel.
 
 All functions are batched over a leading ``P`` axis and take a *masked*
 SPD block: rows/columns beyond the logical width carry an identity
@@ -216,3 +222,60 @@ def finalize_fused(blk, w, cnt):
         raise ValueError(f"bucket height {blk.shape[1]} below its width {c}")
     L, Linv = cholesky_inverse(masked_spd(blk[:, :c, :], w, c, blk.dtype))
     return finalize_diff(blk, w, cnt, L, Linv)
+
+
+def finalize_panel(G, w, c, dtype):
+    """One supernode-panel finalization (dpotrf + dtrsm as GEMM).
+
+    G: (P, H, c) assembled panel (diag block on top).  Returns the
+    factored panel: rows [0, c) replaced by L (identity-padded columns
+    zeroed), rows [c, H) by G_below @ L^{-T} on the columns j < w."""
+    D = masked_spd(G[:, :c, :], w, c, dtype)
+    L, Linv = cholesky_inverse(D)
+    ar = torch.arange(c, device=G.device)
+    wv = w[:, None, None]
+    Ltop = L.masked_fill(~((ar[None, :, None] < wv)
+                           & (ar[None, None, :] < wv)), 0)
+    Y = torch.bmm(G[:, c:, :].to(dtype), Linv.transpose(1, 2))
+    Y = Y.masked_fill(~(ar[None, None, :] < wv), 0)
+    return torch.cat([Ltop, Y], dim=1)
+
+
+def tri_lower_solve(L, b):
+    """x = L^{-1} b for batched lower-triangular L (P, c, c), b (P, c),
+    through the Neumann-product inverse."""
+    return torch.bmm(nilpotent_inv(L), b[:, :, None])[:, :, 0]
+
+
+def tri_lower_solve_t(L, b):
+    """x = L^{-T} b."""
+    return torch.bmm(nilpotent_inv(L).transpose(1, 2), b[:, :, None])[:, :, 0]
+
+
+def tri_inverse(L):
+    """Linv for batched lower-triangular L (P, c, c)."""
+    return nilpotent_inv(L)
+
+
+def dense_tri_inv(T, base: int = 256):
+    """Explicit inverse of one (t, t) lower-triangular matrix by blocked
+    bisection, inv([[A, 0], [B, C]]) = [[Ai, 0], [-Ci B Ai, Ci]], with the
+    Neumann-product inverse at the base: the same splits ``h`` as the JAX
+    ``dense_tri_inv``, O(t^3 / 3) flops in products.  Run once per
+    factorization to prepare the dense-top solve block (the role of dtrsm
+    on the peeled level, Triangular_BCSC.h:238); every solve then costs
+    one (t, t) product.  Shapes depend on ``t`` only, so a captured
+    program holds it."""
+    t = T.shape[0]
+    if t <= base:
+        return nilpotent_inv(T[None])[0]
+    h = max(((t // 2) + 127) // 128 * 128, base)
+    if h >= t:
+        h = t // 2
+    Ai = dense_tri_inv(T[:h, :h], base)
+    Ci = dense_tri_inv(T[h:, h:], base)
+    out = torch.zeros_like(T)
+    out[:h, :h] = Ai
+    out[h:, :h] = -torch.matmul(Ci, torch.matmul(T[h:, :h], Ai))
+    out[h:, h:] = Ci
+    return out

@@ -19,7 +19,14 @@ Counterpart of ``parsy_bench_tpu/ops/supernodal.py`` on the same
 * ``solve_lower`` — the pair-granular forward solve: ``solve_prep`` builds
   slot-ordered Linv pools once per factorization, and each level step
   lands one aligned row per update pair and runs one batched product per
-  class (reference: H2LeveledBlockedLsolve, Triangular_BCSC.h:171);
+  class (reference: H2LeveledBlockedLsolve, Triangular_BCSC.h:171).  A
+  plan with a dense top (``dense_top_cols``) ends the level steps at
+  ``solve_nseg`` and solves the top as one product with its explicit
+  inverse (``top_inverse``; the peeled last level,
+  H2LeveledBlockedLsolve_Peeled, Triangular_BCSC.h:238); with the
+  aligned-operand pool (``_gpool_enabled``, within ``solve_gpool_mb``)
+  each update pair reads its column-aligned block from a slab built by
+  ``solve_prep`` in place of the gather and the one-hot product;
 * ``solve_upper`` / ``solve_spd`` — leveled blocked solves over the same
   wavefront schedule (``solve_spd`` runs the leveled forward solve, as the
   JAX executor's does);
@@ -63,8 +70,6 @@ Differences from the JAX executor, none of which changes a result:
   and Linv-pool slices of the fast solve included) is bounds-checked on
   the host when the executor is built.  JAX clamps out-of-range slices
   and gathers silently; here an out-of-range plan raises;
-* plans with a dense top (``dense_top_cols``) or the aligned-operand pool
-  (``solve_gpool_mb``), both off by default, raise NotImplementedError;
 * row windows are views into the pools and are updated in place.  Each
   phase of a step (updates, then finalize) finishes all of its reads
   before its one write per class, which is what the JAX copies give; the
@@ -230,14 +235,6 @@ class SupernodalExecutor(graphs.ProgramHost):
         self.plan = plan
         self.dtype = torch_dtype(dtype)
         self.device = resolve_device(device)
-        if plan.top is not None:
-            raise NotImplementedError(
-                "plan with a dense top (dense_top_cols > 0): top_inverse "
-                "and dense_tri_inv are a later port (ROADMAP §1, item 2)")
-        if plan.gpool_mb > 0:
-            raise NotImplementedError(
-                "plan with the aligned-operand pool (solve_gpool_mb > 0): "
-                "_gpool_impl is a later port (ROADMAP §1, item 3)")
         refuse_tf32(self.device)
         lay = plan.layout
         self.ncls = lay.ncls
@@ -258,6 +255,10 @@ class SupernodalExecutor(graphs.ProgramHost):
         self._has_fast_solve = (
             plan.bmap is not None
             and all(seg.srlo is not None for seg in plan.segments))
+        #: the dense top (``TopSolve``) and the aligned-operand pool, as in
+        #: the JAX executor: only with the fast solve's tables
+        self._top = None
+        self._gpool_enabled = False
         if self._has_fast_solve:
             self._ingest_solve()
         # the static tensors of the programs, allocated once, outside any
@@ -270,13 +271,29 @@ class SupernodalExecutor(graphs.ProgramHost):
         self._linv = (tuple(torch.zeros((n, c, c), dtype=dt, device=dev)
                             for n, c in zip(self._npanels, self.classes))
                       if self._has_fast_solve else ())
+        # Tinv and the aligned-operand slabs only where the plan has a top
+        # or the pool is on
+        self._tinv = (torch.zeros((self._top.t, self._top.t), dtype=dt,
+                                  device=dev)
+                      if self._top is not None else None)
+        self._gp = ((tuple(tuple(torch.zeros(sh, dtype=dt, device=dev)
+                                 for sh in seg)
+                           for seg in self._gp_shapes[0]),
+                     tuple(torch.zeros(sh, dtype=dt, device=dev)
+                           for sh in self._gp_shapes[1]))
+                    if self._gpool_enabled else ((), ()))
         self._b_in = torch.zeros(plan.n, dtype=dt, device=dev)
         self._x_out = torch.zeros(plan.n, dtype=dt, device=dev)
-        #: ``_held`` keys: "pools" and "linv", what the static pools and
-        #: Linv pools hold; "prep", the pools whose Linv pools
-        #: ``solve_prep`` returned last (``_prep_linv``)
+        #: ``_held`` keys: "pools", what the static pools hold; "prep_out",
+        #: the solve_prep outputs (``_prep_flat``) the static Tinv, Linv
+        #: pools and slabs hold; "prep", the pools whose triple
+        #: ``solve_prep`` returned last (``_prep_out``); "top", the pools
+        #: whose Tinv ``top_inverse`` returned last (``_top_out``)
+        self._prep_static = self._prep_flat((self._tinv, self._linv,
+                                             self._gp))
         self._init_programs(dev)
-        self._prep_linv = None
+        self._prep_out = None
+        self._top_out = None
 
     # ----------------------------------------------------------- tables
     def _map(self, m, ci, nsrc, name):
@@ -466,27 +483,91 @@ class SupernodalExecutor(graphs.ProgramHost):
                 soff.append(so)
             supd = []
             for b in seg.supd:
-                b8 = np.asarray(b.brow, dtype=np.int64) // 8
-                require(b8.min(initial=0) >= 0
-                        and b8.max(initial=0) + b.Q // 8
-                        <= self._nrows[b.kcls] // 8,
-                        "solve B-operand gather past the pool end")
-                require(b.xrow.min(initial=0) >= 0
-                        and b.xrow.max(initial=0) < npan[b.kcls],
-                        "solve source slot outside the xb pool")
-                require(b.colq.min(initial=0) >= 0
-                        and b.colq.max(initial=0) <= b.c,
-                        "solve column index outside the target width")
-                require(b.dst.min(initial=0) >= 0
-                        and b.dst.max(initial=0) <= sw[b.ccls],
-                        "solve target slot outside the slot window")
-                supd.append(_SolveUpdTables(
-                    b8=self._up(b8), xrow=self._up(b.xrow),
-                    colq=self._up(b.colq), dst=self._up(b.dst)))
+                supd.append(self._solve_upd(b, sw[b.ccls]))
             self._ssegs.append(_SolveTables(
                 srlo=srlo, strue=strue, soff=soff, supd=supd,
                 has_cls=[any(b.ccls == ci for b in seg.fin)
                          for ci in range(self.ncls)]))
+        nseg = len(plan.segments)
+        self._solve_nseg = (nseg if plan.solve_nseg is None
+                            else int(plan.solve_nseg))
+        require(0 <= self._solve_nseg <= nseg,
+                "solve segment count outside [0, nseg]")
+        if plan.top is not None:
+            self._ingest_top(plan.top)
+        # the aligned-operand pool: one (T, P*c*K) slab per update bucket
+        # of the scanned segments, one (1, P*c*K) per top bucket; on when
+        # its bytes fit the plan's budget (the JAX executor's f32 count)
+        self._gp_shapes = (
+            [[(seg.nsteps, b.brow.shape[1] * b.c * b.K) for b in seg.supd]
+             for seg in plan.segments[:self._solve_nseg]],
+            [(1, b.brow.shape[1] * b.c * b.K)
+             for b in (plan.top.supd if plan.top is not None else [])])
+        self._gpool_bytes = 4 * sum(
+            T * w for part in self._gp_shapes[0] for T, w in part) + 4 * sum(
+            w for _, w in self._gp_shapes[1])
+        self._gpool_enabled = (self._gpool_bytes
+                               <= getattr(plan, "gpool_mb", 2048) * 2**20)
+
+    def _solve_upd(self, b, dst_max):
+        """One solve-update bucket's tables, each gather bounds-checked;
+        ``dst`` at most ``dst_max`` (the dummy slot row of a window, or the
+        trash slot of a top bucket)."""
+        npan = self._npanels
+        b8 = np.asarray(b.brow, dtype=np.int64) // 8
+        require(b8.min(initial=0) >= 0
+                and b8.max(initial=0) + b.Q // 8
+                <= self._nrows[b.kcls] // 8,
+                "solve B-operand gather past the pool end")
+        require(b.xrow.min(initial=0) >= 0
+                and b.xrow.max(initial=0) < npan[b.kcls],
+                "solve source slot outside the xb pool")
+        require(b.colq.min(initial=0) >= 0
+                and b.colq.max(initial=0) <= b.c,
+                "solve column index outside the target width")
+        require(b.dst.min(initial=0) >= 0
+                and b.dst.max(initial=0) <= dst_max,
+                "solve target slot outside the slot window")
+        return _SolveUpdTables(b8=self._up(b8), xrow=self._up(b.xrow),
+                               colq=self._up(b.colq), dst=self._up(b.dst))
+
+    def _ingest_top(self, top):
+        """The dense top's tables (``TopSolve``): T's gather from the pools
+        as flat (row * c + col) pool positions, the xb map of its columns
+        and its bottom-to-top update buckets, every index bounds-checked
+        (JAX clamps them)."""
+        t = int(top.t)
+        require(t > 0 and len(top.gather) == self.ncls
+                and len(top.xmap) == self.ncls,
+                "dense top without columns or without a table per class")
+        gather, xmap = [], []
+        for ci, c in enumerate(self.classes):
+            g = np.asarray(top.gather[ci], dtype=np.int64)
+            if g.shape[1]:
+                require(g[0].min() >= 0 and g[0].max() < self._nrows[ci]
+                        and g[1].min() >= 0 and g[1].max() < c,
+                        f"top gather class {ci} outside its pool")
+                require(g[2].min() >= 0 and g[2].max() < t * t,
+                        f"top gather class {ci} outside the t x t block")
+            gather.append((self._up(g[0] * c + g[1], torch.int64),
+                           self._up(g[2], torch.int64)))
+            m = np.asarray(top.xmap[ci], dtype=np.int64)
+            if m.shape[1]:
+                require(m[0].min() >= 0
+                        and m[0].max() < self._npanels[ci] * c,
+                        f"top xmap class {ci} position outside the xb pool")
+                require(m[1].min() >= 0 and m[1].max() < t,
+                        f"top xmap class {ci} index outside [0, t)")
+            xmap.append((self._up(m[0], torch.int64),
+                         self._up(m[1], torch.int64)))
+        supd = []
+        for b in top.supd:
+            require(np.shape(b.brow)[0] == 1,
+                    "top update bucket with more than one step")
+            # absolute slot targets; padded lanes land on the trash slot
+            supd.append(self._solve_upd(b, self._npanels[b.ccls] - 1))
+        self._top = top
+        self._top_gather, self._top_xmap, self._top_supd = gather, xmap, supd
 
     # ------------------------------------------------------------- pools
     def _rows_view(self, pool, ci, start, rows):
@@ -943,33 +1024,132 @@ class SupernodalExecutor(graphs.ProgramHost):
                         blk, ft.w[t], b.c)
         return tuple(linv)
 
+    def _top_dense(self, pools):
+        """The dense top's (t, t) lower-triangular block T, gathered from
+        the pools: the lower triangle of every L value among the top's
+        columns (the strict upper triangles of the diagonal blocks hold
+        stored inverses and are never gathered)."""
+        t = self._top.t
+        Td = torch.zeros(t * t, dtype=self.dtype, device=self.device)
+        for pool, (src, dst) in zip(pools, self._top_gather):
+            Td[dst] = pool.reshape(-1)[src]
+        return Td.view(t, t)
+
+    def _top_inverse_impl(self, pools):
+        """Tinv = T^{-1} (``dense.dense_tri_inv``)."""
+        return dense.dense_tri_inv(self._top_dense(pools))
+
+    def top_inverse(self, pools):
+        """Explicit inverse of the dense top's triangular block, from the
+        factored pools, by one program on the static pools; a clone, cached
+        on the pools' identity and version counters.  A plan without a top
+        gives a (0, 0) tensor, as in the JAX executor."""
+        if self._top is None:
+            return torch.zeros((0, 0), dtype=self.dtype, device=self.device)
+        pools = tuple(pools)
+        if self._holds("top", pools):
+            return self._top_out
+        self._load("pools", self._pools, pools)
+        self._program("top_inverse", lambda: self._tinv.copy_(
+            self._top_inverse_impl(self._pools))).run()
+        # the static Tinv no longer holds solve_prep's
+        self._held.pop("prep_out", None)
+        self._top_out = self._tinv.clone()
+        self._hold("top", pools)
+        return self._top_out
+
+    def _gpool_block(self, pools, b, su):
+        """Aligned-operand slab of one solve-update bucket: per pair and
+        step the column-aligned overlap block G = S @ B_raw (c, K), S the
+        one-hot alignment from ``colq``, as (T, P*c*K)."""
+        T, P = su.b8.shape
+        Braw = pools[b.kcls][
+            su.b8.reshape(-1)[:, None] + self._ar(b.Q // 8)
+        ].reshape(-1, b.Q, b.K)
+        S = (self._ar(b.c)[None, :, None]
+             == su.colq.reshape(-1, 1, b.Q)).to(self.dtype)
+        return torch.bmm(S, Braw).view(T, P * b.c * b.K)
+
+    def _gpool_impl(self, pools, gp):
+        """Fill the aligned-operand pool ``gp`` (``self._gp``'s layout):
+        per scanned segment and update bucket a (T, P*c*K) slab, per top
+        bucket a (1, P*c*K) one, so that every solve step reads one slab
+        in place of an index gather and a one-hot product."""
+        for seg, st, slabs in zip(self.plan.segments, self._ssegs, gp[0]):
+            for b, su, g in zip(seg.supd, st.supd, slabs):
+                g.copy_(self._gpool_block(pools, b, su))
+        if self._top is not None:
+            for b, su, g in zip(self._top.supd, self._top_supd, gp[1]):
+                g.copy_(self._gpool_block(pools, b, su))
+
+    def _prep_flat(self, triple):
+        """The tensors of a ``solve_prep`` triple in the static tensors'
+        order: Tinv where the plan has a top, the Linv pools, the slabs
+        where the pool is on."""
+        tinv, linv, gp = triple
+        return (((tinv,) if self._top is not None else ()) + tuple(linv)
+                + tuple(g for slabs in gp[0] for g in slabs) + tuple(gp[1]))
+
     def solve_prep(self, pools):
-        """The slot-ordered Linv pools of the fast forward solve, built
-        once per factorization by one program (the counterpart of the JAX
-        ``_linv_pools_j``) and returned as clones, so that each factor
-        keeps its own.  Cached on the pools' identity and their version
-        counters, so new pools or pools changed in place rebuild it."""
+        """(tinv, linv, gp) for the fast forward solve, built once per
+        factorization by one program on the static tensors (the JAX
+        executor's ``top_inverse``, ``_linv_pools_j`` and ``_gpool_j``):
+        Tinv (a (0, 0) tensor without a top), the slot-ordered Linv pools,
+        and the aligned-operand pool ``(segments, top)`` (``((), ())``
+        when it is off).  Returned as clones, so that each factor keeps
+        its own; cached on the pools' identity and version counters, so
+        new pools or pools changed in place rebuild it."""
         pools = tuple(pools)
         if self._holds("prep", pools):
-            return self._prep_linv
+            return self._prep_out
         self._load("pools", self._pools, pools)
-        self._program("linv", lambda: self._linv_pools(
-            self._pools, self._linv)).run()
-        linv = tuple(x.clone() for x in self._linv)
-        self._hold("linv", linv)
-        self._hold("prep", pools)
-        self._prep_linv = linv
-        return linv
 
-    def _solve_lower_fast_impl(self, pools, b_vec, linv):
+        def prep():
+            self._linv_pools(self._pools, self._linv)
+            if self._top is not None:
+                self._tinv.copy_(self._top_inverse_impl(self._pools))
+            if self._gpool_enabled:
+                self._gpool_impl(self._pools, self._gp)
+        self._program("solve_prep", prep).run()
+        tinv = (self._tinv.clone() if self._top is not None
+                else torch.zeros((0, 0), dtype=self.dtype,
+                                 device=self.device))
+        linv = tuple(x.clone() for x in self._linv)
+        gp = (tuple(tuple(g.clone() for g in slabs) for slabs in self._gp[0]),
+              tuple(g.clone() for g in self._gp[1]))
+        self._prep_out = (tinv, linv, gp)
+        self._hold("prep_out", self._prep_flat(self._prep_out))
+        self._hold("prep", pools)
+        return self._prep_out
+
+    def _aligned(self, pools, b, su, t, xsrc, slab=None):
+        """(P, c): the rows y = L_overlap x_src of one solve-update
+        bucket's pairs at step t, aligned to the target panel's columns:
+        from the pair's slab of the aligned-operand pool when given
+        (``slab``, (T, P*c*K)), else by gathering the B operand from the
+        pools and one one-hot product."""
+        if slab is not None:
+            G = slab[t].view(-1, b.c, b.K)
+            return torch.bmm(G, xsrc[:, :, None])[:, :, 0]
+        Braw = pools[b.kcls][
+            su.b8[t][:, None] + self._ar(b.Q // 8)
+        ].reshape(-1, b.Q, b.K)
+        y = torch.bmm(Braw, xsrc[:, :, None])                   # (P, Q, 1)
+        S = (self._ar(b.c)[None, :, None]
+             == su.colq[t][:, None, :]).to(self.dtype)
+        return torch.bmm(S, y)[:, :, 0]
+
+    def _solve_lower_fast_impl(self, pools, b_vec, tinv, linv, gp):
         """Forward substitution with the right-hand side in panel-column
         layout (xb pools: one c-wide row per panel slot).  Per level step
         each update pair lands one column-aligned row
         y = L_overlap x_src on its target slot, and each class then takes
         one slice of the Linv pool and one batched product for its
-        diagonal solves.  Counterpart of the JAX executor's
-        ``_solve_lower_fast_impl`` without the dense top and the
-        aligned-operand pool (both refused at construction)."""
+        diagonal solves.  The counterpart of the JAX executor's
+        ``_solve_lower_fast_impl``: with a dense top the level steps stop
+        at ``solve_nseg``, the top's update buckets land from below, and
+        one product with ``tinv`` solves the top's columns; with the
+        aligned-operand pool on, each pair reads its slab of ``gp``."""
         n = self.plan.n
         xb = []
         for ci, c in enumerate(self.classes):
@@ -978,25 +1158,22 @@ class SupernodalExecutor(graphs.ProgramHost):
                                device=self.device)
             flat[pos] = b_vec[sel]
             xb.append(flat.view(-1, c))
-        for seg, st in zip(self.plan.segments, self._ssegs):
+        for si in range(self._solve_nseg):
+            seg, st = self.plan.segments[si], self._ssegs[si]
+            slabs = gp[0][si] if self._gpool_enabled else [None] * len(
+                seg.supd)
             for t in range(seg.nsteps):
                 # every operand is gathered (copied) before any slot
                 # window of this step is written
                 deltas = [None] * self.ncls
-                for b, su in zip(seg.supd, st.supd):
-                    xsrc = xb[b.kcls][su.xrow[t]]                # (P, K)
-                    Braw = pools[b.kcls][
-                        su.b8[t][:, None] + self._ar(b.Q // 8)
-                    ].reshape(-1, b.Q, b.K)
-                    y = torch.bmm(Braw, xsrc[:, :, None])        # (P, Q, 1)
-                    S = (self._ar(b.c)[None, :, None]
-                         == su.colq[t][:, None, :]).to(self.dtype)
+                for b, su, g in zip(seg.supd, st.supd, slabs):
+                    C = self._aligned(pools, b, su, t,
+                                      xb[b.kcls][su.xrow[t]], g)
                     if deltas[b.ccls] is None:
                         deltas[b.ccls] = torch.zeros(
                             (seg.sslice[b.ccls] + 1, b.c), dtype=self.dtype,
                             device=self.device)
-                    deltas[b.ccls].index_add_(0, su.dst[t],
-                                              torch.bmm(S, y)[:, :, 0])
+                    deltas[b.ccls].index_add_(0, su.dst[t], C)
                 for ci, c in enumerate(self.classes):
                     Sw = seg.sslice[ci]
                     lo = int(st.srlo[ci, t])
@@ -1014,6 +1191,21 @@ class SupernodalExecutor(graphs.ProgramHost):
                     win[:ntrue] = torch.bmm(
                         linv[ci][lo:lo + ntrue],
                         (win[:ntrue] * colv)[:, :, None])[:, :, 0] * colv
+        if self._top is not None:
+            # the bottom-to-top updates, bucket after bucket, then the top
+            # columns' right-hand side through one product with Tinv
+            slabs = gp[1] if self._gpool_enabled else [None] * len(
+                self._top_supd)
+            for b, su, g in zip(self._top.supd, self._top_supd, slabs):
+                C = self._aligned(pools, b, su, 0, xb[b.kcls][su.xrow[0]], g)
+                xb[b.ccls].index_add_(0, su.dst[0], C, alpha=-1)
+            rhs = torch.zeros(self._top.t, dtype=self.dtype,
+                              device=self.device)
+            for ci, (pos, idx) in enumerate(self._top_xmap):
+                rhs[idx] = xb[ci].reshape(-1)[pos]
+            xt = torch.mv(tinv, rhs)
+            for ci, (pos, idx) in enumerate(self._top_xmap):
+                xb[ci].view(-1)[pos] = xt[idx]
         out = torch.zeros(n, dtype=self.dtype, device=self.device)
         for ci in range(self.ncls):
             pos, sel = self._bmap[ci]
@@ -1025,13 +1217,14 @@ class SupernodalExecutor(graphs.ProgramHost):
         ``b`` (copied into the static tensors unless they hold them) and
         return a clone of its x."""
         if name == "solve_lower_fast":
-            self._load("linv", self._linv, self.solve_prep(pools))
+            self._load("prep_out", self._prep_static,
+                       self._prep_flat(self.solve_prep(pools)))
         self._load("pools", self._pools, pools)
         self._b_in.copy_(self._check_vec(b))
         P, bv = self._pools, self._b_in
         impl = {
             "solve_lower_fast": lambda: self._solve_lower_fast_impl(
-                P, bv, self._linv),
+                P, bv, self._tinv, self._linv, self._gp),
             "solve_lower": lambda: self._solve_lower_impl(P, bv),
             "solve_upper": lambda: self._solve_upper_impl(P, bv),
             "solve_spd": lambda: self._solve_upper_impl(

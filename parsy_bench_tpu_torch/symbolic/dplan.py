@@ -12,9 +12,9 @@ sharded over the mesh (one slice per device):
   window; a cross-owner chunk scatters into a per-class **boundary send
   buffer** slot addressed (target owner, slot);
 * one **ragged psum** per (class, level step) reduces the send buffers
-  over a ragged per-receiver layout (measured 1.2-3.9x faster than a
-  receiver-padded psum_scatter: top-separator steps have a single hot
-  receiver); each device then slices its OWN boundary rows (Bc rows, not
+  over a ragged per-receiver layout (a receiver-padded psum_scatter
+  would pad to the hot receiver of the top-separator steps); each
+  device then slices its OWN boundary rows (Bc rows, not
   the whole window) out of the reduced buffer — the boundary-only collective
   that replaces the reference's shared-memory scatter and the round-3
   full-window psum (SURVEY §7E; computeComCost's inter-partition nnz,
@@ -467,8 +467,8 @@ def build_dist_plan(a: CSC, parent: np.ndarray, cc: np.ndarray,
         # slots live at [boff[g,t], boff[g,t]+cnt[g,t]) of a btot-row
         # buffer, reduced with ONE psum; each device then applies only
         # its own slice.  (A receiver-padded psum_scatter would move
-        # G*max_g(cnt) rows — measured 4x worse at G=8, n=1e5, because
-        # top-separator steps have a single hot receiver.)
+        # G*max_g(cnt) rows: top-separator steps have a single hot
+        # receiver.)
         boff_cls = []
         btot_cls = []
         for ci in range(ncls):

@@ -250,9 +250,9 @@ def _build_gather_tables(upd_buckets, wslice, T, ncls):
     """Static gather/ladder tables that turn the per-step delta
     SCATTER-add into pure gathers + dense sums (scatter-free updates).
 
-    The executor's ``deltas.at[dst].add(C)`` costs ~25 ns per scattered
-    row on the chip (measured r3/r5 — 5.3M padded rows = ~130 ms of the
-    300 ms factorize at n=1e5), while static ``take`` runs at ~1 ns/row.
+    The executor's ``deltas.at[dst].add(C)`` scatters one row per padded
+    chunk row (5.3M at n=1e5), while a static ``take`` moves rows without
+    atomics; the card's factorize times in both modes are in PERF.md §5.
     Every (chunk row -> window row) assignment is known at inspection
     time, so the scatter inverts statically:
 

@@ -48,14 +48,21 @@ def _both(argv):
 
 @pytest.mark.parametrize("tier", ["supernodal", "simplicial"])
 def test_cholesky_driver(tier):
+    """With ``--profile`` the supernodal line carries the model's summary
+    under the JAX driver's keys."""
     jout, pout = _both(["cholesky", "gen:laplace3d:5", "--tier", tier,
-                        "--iters", "2", "--verify"])
+                        "--iters", "2", "--verify", "--profile"])
     assert pout["device"] == "cpu" and pout["n"] == jout["n"] == 125
     assert pout["factor_residual"] < 1e-3 and pout["solve_residual"] < 1e-3
     if tier == "supernodal":
         assert pout["update_delta"] == "gather"
         for k in ("nlev", "nsuper", "table_mb", "pool_mb"):
             assert pout[k] == jout[k], k
+        assert set(pout["model"]) == set(jout["model"])
+        assert pout["model"]["sequential_steps"] == jout["model"][
+            "sequential_steps"]
+    else:
+        assert "model" not in pout and "model" not in jout
 
 
 def test_trisolve_driver_on_a_factor():
@@ -108,9 +115,13 @@ def test_ordering_file_and_refusals(tmp_path, monkeypatch):
                       "--ordering-file", str(path), "--iters", "1",
                       "--verify", "--device", "cpu"])
     assert out["factor_residual"] < 1e-3
-    # --profile is not ported: it exits non-zero, never prints nothing
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["cholesky", "gen:laplace2d:4", "--profile", "--device", "cpu"])
+    # --profile is ported: cholesky adds the model's summary, trisolve
+    # accepts it and prints what it prints without it
+    out = _run(main, ["cholesky", "gen:laplace2d:4", "--profile", "--iters",
+                      "1", "--device", "cpu"])
+    assert out["model"]["model_s"] > 0
+    args = ["trisolve", "gen:laplace2d:4", "--iters", "1", "--device", "cpu"]
+    assert set(_run(main, args + ["--profile"])) == set(_run(main, args))
     # without --device the numeric phase asks for the card
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -173,3 +173,59 @@ def test_panels_mirror_negative_pivot_gives_nan(c):
     for X in (L, Linv):
         assert torch.isfinite(X[0]).all()
         assert torch.isnan(X[1]).any()
+
+
+def _chol_factor(rng, t):
+    """A well-conditioned (t, t) lower-triangular factor, as the dense top
+    gathers from a Cholesky factor."""
+    M = rng.standard_normal((t, t))
+    return np.linalg.cholesky(M @ M.T / t + np.eye(t))
+
+
+@pytest.mark.parametrize("t", [5, 256, 300, 700])
+def test_dense_tri_inv_matches_jax(t):
+    """The dense top's inverse: the same bisection as the JAX
+    ``dense_tri_inv`` (t = 5 and 256 are base cases, 300 and 700 split),
+    f64 within 1e-10 (and T Tinv = I within 1e-10), f32 within 1e-4 of
+    the largest |entry|."""
+    T = _chol_factor(np.random.default_rng(t), t)
+    for dtype, jdt in (("float64", jnp.float64), ("float32", jnp.float32)):
+        Tj = np.asarray(jdense.dense_tri_inv(jnp.asarray(T.astype(dtype),
+                                                         dtype=jdt)))
+        Tp = dense.dense_tri_inv(torch.as_tensor(T.astype(dtype))).numpy()
+        assert Tp.dtype == np.dtype(dtype)
+        if dtype == "float64":
+            assert np.max(np.abs(Tp - Tj)) <= 1e-10
+            assert np.max(np.abs(T @ Tp - np.eye(t))) <= 1e-10
+            assert np.all(np.triu(Tp, 1) == 0)
+        else:
+            assert np.max(np.abs(Tp - Tj)) <= 1e-4 * np.abs(Tj).max()
+
+
+def test_tri_solves_and_finalize_panel_match_jax_f64():
+    """``tri_inverse``, ``tri_lower_solve``, ``tri_lower_solve_t`` and
+    ``finalize_panel`` against the JAX functions of the same names, f64
+    within 1e-10, on full, partly masked and w = 0 lanes."""
+    rng = np.random.default_rng(13)
+    c, H = 32, 80
+    D = _rand_spd(rng, 4, c)
+    w = np.array([c, 20, 0, 1], dtype=np.int32)
+    L = np.linalg.cholesky(_rand_spd(rng, 4, c))
+    b = rng.standard_normal((4, c))
+    Lt, bt, Lj, bj = (torch.as_tensor(L), torch.as_tensor(b),
+                      jnp.asarray(L), jnp.asarray(b))
+    for port, ref in (
+            (dense.tri_inverse(Lt), jdense.tri_inverse(Lj)),
+            (dense.tri_lower_solve(Lt, bt), jdense.tri_lower_solve(Lj, bj)),
+            (dense.tri_lower_solve_t(Lt, bt),
+             jdense.tri_lower_solve_t(Lj, bj))):
+        assert port.shape == ref.shape
+        assert np.max(np.abs(port.numpy() - np.asarray(ref))) <= 1e-10
+    G = rng.standard_normal((4, H, c))
+    G[:, :c, :] = D
+    port = dense.finalize_panel(torch.as_tensor(G), torch.as_tensor(w), c,
+                                torch.float64).numpy()
+    ref = np.asarray(jdense.finalize_panel(jnp.asarray(G), jnp.asarray(w), c,
+                                           jnp.float64))
+    assert port.shape == (4, H, c)
+    assert np.max(np.abs(port - ref)) <= 1e-10

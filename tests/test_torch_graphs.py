@@ -205,9 +205,9 @@ def test_results_are_not_aliased():
     lx2 = ex.factorize(4.0 * a)
     assert _bit_equal(lx1, keep)
     assert _bit_equal(lx2, ex._factorize_eager(4.0 * a))
-    l1 = ex.solve_prep(lx1)
+    _, l1, _ = ex.solve_prep(lx1)
     keep_l = [x.clone() for x in l1]
-    l2 = ex.solve_prep(lx2)
+    _, l2, _ = ex.solve_prep(lx2)
     assert _bit_equal(l1, keep_l) and not _bit_equal(l1, l2)
     b = np.random.default_rng(9).standard_normal(port.a.n)
     x1 = ex.solve_lower(lx1, b)
@@ -216,8 +216,8 @@ def test_results_are_not_aliased():
     assert torch.equal(x1, x1b) and x1.data_ptr() != x1b.data_ptr()
     # L(4A) = 2 L(A)
     assert torch.max(torch.abs(x2 - x1 / 2)) <= 1e-10 * float(x1.abs().max())
-    assert torch.equal(x1, ex._solve_lower_fast_impl(lx1, ex._vec(b),
-                                                     ex._linv_pools(lx1)))
+    assert torch.equal(x1, ex._solve_lower_fast_impl(
+        lx1, ex._vec(b), None, ex._linv_pools(lx1), ((), ())))
     s1 = ex.solve_spd(lx1, b)
     ex.solve_spd(lx2, b)
     assert torch.equal(ex.solve_spd(lx1, b), s1)

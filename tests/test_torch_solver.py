@@ -97,9 +97,10 @@ def test_unported_options_raise():
     a = generate.SUITE["tiny"]()
     with pytest.raises(ValueError, match="tier"):
         CholeskySolver(a, SolverConfig(tier="blocked"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CholeskySolver(a, SolverConfig(tier="supernodal", verify=True),
+    # verify=True is ported: it checks the plan and records its time
+    s = CholeskySolver(a, SolverConfig(tier="supernodal", verify=True),
                        device="cpu")
+    assert "verify_s" in s.timings
     with pytest.raises(ValueError):
         _solver(a, dtype="float16")
 
@@ -135,12 +136,17 @@ def test_chol_inverse_dispatch_cpu():
     assert kernels.cholesky_inverse_cuda.launches == before
 
 
-def test_package_imports_no_jax():
+def test_package_imports_no_jax(tmp_path):
     """In a process where jax cannot be imported, the port imports,
-    factorizes and solves, and loads no module of jax and none of the JAX
-    package (``parsy_bench_tpu`` or anything under it); the multi-device
-    tier imports, and its G = 2 factorize runs in two gloo ranks that
-    load neither."""
+    factorizes and solves (a dense-top plan's fast solve too), and loads
+    no module of jax and none of the JAX package (``parsy_bench_tpu`` or
+    anything under it), not even when it is handed an analysis artifact
+    that the JAX package wrote (refused); the multi-device tier imports,
+    and its G = 2 factorize runs in two gloo ranks that load neither."""
+    from parsy_bench_tpu.models import CholeskySolver as JaxCholeskySolver
+    art = str(tmp_path / "jax.pbt")
+    JaxCholeskySolver(generate.SUITE["tiny"](), SolverConfig(
+        tier="supernodal")).save_analysis(art)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -152,6 +158,21 @@ def test_package_imports_no_jax():
         "    dtype='float64'), device='cpu').factorize()\n"
         "x = s.solve(a.spd_rhs_for_ones())\n"
         "assert np.max(np.abs(x - 1)) < 1e-8\n"
+        "a8 = generate.laplace_3d(8)\n"
+        "t = pt.CholeskySolver(a8, pt.SolverConfig(tier='supernodal',\n"
+        "    ordering='nd', dtype='float64', dense_top_cols=10**6,\n"
+        "    dense_top_thin=1000, verify=True), device='cpu').factorize()\n"
+        "assert t.executor._top is not None\n"
+        "bt = t.factor_csc().to_scipy() @ np.ones(a8.n)\n"
+        "y = t.executor.solve_lower(t.lx, bt).numpy()\n"
+        "assert np.max(np.abs(y - 1)) < 1e-8\n"
+        f"art = {art!r}\n"
+        "try:\n"
+        "    pt.CholeskySolver.from_artifact(a, art, device='cpu')\n"
+        "except ValueError as e:\n"
+        "    assert 'JAX package' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('a JAX artifact was loaded')\n"
         "f = pt.CholeskySolver(a, pt.SolverConfig(tier='supernodal',\n"
         "    dtype='float64'), device='cpu', fused_finalize=True)\n"
         "f.factorize()\n"
@@ -175,6 +196,8 @@ def test_package_imports_no_jax():
         "          '--iters', '1'])\n"
         "cli.main(['cholesky', 'gen:laplace2d:5', '--device', 'cpu',\n"
         "          '--iters', '1', '--tier', 'simplicial'])\n"
+        "cli.main(['cholesky', 'gen:laplace2d:5', '--device', 'cpu',\n"
+        "          '--iters', '1', '--profile'])\n"
         "import parsy_bench_tpu_torch.core.io\n"
         "import parsy_bench_tpu_torch.parallel\n"
         "from parsy_bench_tpu_torch.parallel import comm, runs\n"

@@ -20,6 +20,8 @@ string turned to ``"cpu"`` and these stand-ins:
 * every device asked for resolves to the CPU;
 * the plan-shape checks print instead of raising, and the kernel shapes
   of phases 3 and 7 are cut to the small plan's;
+* the main path's matrix is laplace_3d(12) and phase 17's dense top
+  takes at most 1,024 columns (a partial top there);
 * the simplicial phase runs at laplace_3d(5) and the CLI (phase 15,
   real subprocesses, on the CPU) on small generated matrices;
 * the multi-device phase (16) runs its rank processes for real, gloo on
@@ -181,7 +183,7 @@ def main() -> int:
     with open(path) as f:
         src = f.read()
     for old, new in (('"cuda"', '"cpu"'),
-                     ("laplace_3d(48)", "laplace_3d(10)"),
+                     ("laplace_3d(48)", "laplace_3d(12)"),
                      ("laplace_3d(24)", "laplace_3d(6)"),
                      ('raise AssertionError(f"plan\'s', 'print(f"plan\'s')):
         if old not in src:
@@ -190,14 +192,15 @@ def main() -> int:
     ns = {"__name__": "chip_smoke_rehearsal", "__file__": path}
     exec(compile(src, path, "exec"), ns)
     for name in ("SIMPLICIAL_GRID", "CLI_RUNS", "K1_SHAPES", "K1_SMALL",
-                 "K2_SHAPES", "DIST_GROUPS", "SHARDED_G",
-                 "_multi_device_phase", "_card", "_device_ops"):
+                 "K2_SHAPES", "DIST_GROUPS", "SHARDED_G", "DENSE_TOP_COLS",
+                 "GPOOL_MB", "_multi_device_phase", "_last_slice_phase",
+                 "_card", "_device_ops"):
         if name not in ns:
             raise AssertionError(f"chip_smoke.py no longer defines {name}")
     ns["_card"] = lambda: "CPU rehearsal, no card"
     ns["_device_ops"] = _device_ops
     # the kernel shapes of phases 3 and 7, cut to the small plan's
-    s = CholeskySolver(generate.laplace_3d(10),
+    s = CholeskySolver(generate.laplace_3d(12),
                        SolverConfig(ordering="nd", dtype="float32",
                                     tier="supernodal"), device="cpu")
     exf = supernodal.SupernodalExecutor(s.plan, "float32", "cpu",
@@ -208,9 +211,13 @@ def main() -> int:
     ns["K1_SHAPES"] = tuple(sorted(s.executor.chol_batch_shapes()))[:5]
     ns["K1_SMALL"] = ((3, 8), (3, 48))
     ns["K2_SHAPES"] = (max(fshapes), (4, 64, 32), (1, 96, 32), (3, 64, 64))
+    # phase 17's dense top: a partial one at laplace_3d(12) (two of five
+    # segments in the level steps)
+    ns["DENSE_TOP_COLS"] = 1024
     # the simplicial phase and the CLI at small sizes
     ns["SIMPLICIAL_GRID"] = 5
-    ns["CLI_RUNS"] = (("cholesky", "gen:laplace3d:5", "--verify"),
+    ns["CLI_RUNS"] = (("cholesky", "gen:laplace3d:5", "--verify",
+                       "--profile"),
                       ("trisolve", "gen:laplace3d:5"),
                       ("trisolve", "gen:laplace3d:8", "--lower", "--tier",
                        "simplicial", "--schedule", "coarsened"))
