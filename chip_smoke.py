@@ -81,12 +81,22 @@ Phases, each of which raises on failure (nothing is caught):
 10. the probes (``parsy_bench_tpu_torch.probes.run``): P1 copy bit-equal,
    P2 matmul within 1e-5*K*max|a|*max|b| and ones @ 2I exactly 2, P3
    gather within 1e-5 of the largest |sum|, at a 32 MB pool (warm L2) and
-   a 256 MB pool (L2 flushed before each call), with GB/s; the yardsticks
-   ``x.clone()`` (P1), ``torch.matmul`` (P2) and ``embedding_bag`` in
-   mode "sum" (P3, checked against the plain gather) timed at the same
-   shapes; P3 and ``embedding_bag`` once more on the 256 MB pool, L2
-   flushed before each call, in 12 interleaved pairs (P3, bag, bag, P3,
-   ...), with the medians and the spread of each;
+   a 256 MB pool (L2 flushed before each call), each with the bytes and
+   bound of its own indices; the yardsticks ``x.clone()`` (P1),
+   ``torch.matmul`` (P2) and ``embedding_bag`` in mode "sum" (P3, checked
+   against the plain gather) timed at the same shapes; P1 and
+   ``x.clone()`` in 12 interleaved pairs (P1, clone, clone, P1, ...);
+   P3 and ``embedding_bag`` in 12 pairs at both pools, and P3's kernel
+   time from torch.profiler; at the 256 MB pool P3 in single calls after
+   a write flush and after a read flush of L2 (and after a write flush
+   without the settling sleep), in turns; then P3 at the main path's
+   ladder sums (``_ladder_sums``, phase 4's plan): at every (class,
+   ladder m) the step with the largest R, the kernel and
+   ``embedding_bag`` within 1e-5 of the largest |sum| of the executor's
+   ``call[gi[t]].sum(dim=1)``, the three timed with the call buffer
+   written before each call, and one pass over every ladder sum of a
+   factorize with each, against the pass's byte bound.  The executor is
+   not touched: phase 4 checked that its run launched P3 no time;
 11. the scatter update mode at n = 110,592: a second ``CholeskySolver``
    with ``update_delta="scatter"`` (its own analyze); K1 counted as in
    phase 4; the captured ``factorize`` within 1e-6 of the pool scale of
@@ -158,7 +168,9 @@ Phases, each of which raises on failure (nothing is caught):
 
 Output: JSON lines of each phase's numbers, the card line, one JSON line
 ``{"kernels": [...]}`` (K1, K2, P1, P2, P3, each with the launches of its
-path's run, its times, bound and yardstick; K1 and K2 also with their
+path's run, its times, bound and yardstick; P1 with its pairs against
+``x.clone()``, P3 with each run's bound, the flush study and the ladder
+sums; K1 and K2 also with their
 launches per replay from the capture and from the profiler; K1 also with
 its launches in each rank's factorize of phase 16, its checks at the
 ranks' batch shapes and its launches in phase 17's factorizes) and,
@@ -168,7 +180,9 @@ package.
 """
 from __future__ import annotations
 
+import functools
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -209,6 +223,14 @@ GPOOL_MB = 2048
 #: csrc/finalize_fused.cu)
 K1_NAMES = ("chol_inverse_warp_kernel", "chol_inverse_blocked_kernel")
 K2_NAMES = ("finalize_warp_kernel", "finalize_blocked_kernel")
+#: P3's kernel name as torch.profiler shows it (csrc/probes.cu)
+P3_NAMES = ("gather_sum_kernel",)
+#: the name of the small operations that open each profiled window of
+#: phase 10 (``torch.exp_``), and of the operation that writes the ladder's
+#: call buffers (an elementwise ``torch.mul``); no measured call launches
+#: either
+PRIMER_NAME = "exp_kernel"
+FILL_NAME = "MulFunctor"
 
 
 #: the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
@@ -607,23 +629,307 @@ def _captured_programs(torch, np, ex, solver, expected, med, prof4,
         slowest_segments=top, card=card)
 
 
-def _interleaved(probes, a, b, flush, pairs=12, reps=5):
+def _stats(t):
+    s = sorted(t)
+    return dict(median=statistics.median(s), min=s[0], max=s[-1], all=t)
+
+
+def _interleaved(a, b, sample, pairs=12):
     """Medians and spread of two calls timed in turns (a, b, b, a, ...),
-    ``pairs`` samples each, a sample the mean of ``reps`` calls with L2
-    flushed before each (``probes.cuda_ms_cold``); and in how many of the
-    pairs a was the faster."""
+    ``pairs`` samples each, a sample ``sample(fn)`` ms; and in how many of
+    the pairs a was the faster."""
     ta, tb = [], []
     for k in range(pairs):
         order = ((a, ta), (b, tb)) if k % 2 == 0 else ((b, tb), (a, ta))
         for fn, acc in order:
-            acc.append(probes.cuda_ms_cold(fn, reps, flush))
+            acc.append(sample(fn))
+    return dict(kernel=_stats(ta), other=_stats(tb),
+                kernel_faster_in=sum(x < y for x, y in zip(ta, tb)),
+                pairs=pairs)
 
-    def stats(t):
-        s = sorted(t)
-        return dict(median=s[len(s) // 2], min=s[0], max=s[-1], all=t)
-    return dict(p3=stats(ta), library=stats(tb),
-                p3_faster_in=sum(x < y for x, y in zip(ta, tb)),
-                pairs=pairs, calls_per_sample=reps)
+
+def _profiled_ms(torch, fn, flush, names=(), reps=10, skip=(), expect=1):
+    """(device ms per call, device operations per call, share seen) over
+    ``reps`` calls of ``fn``, each after ``flush()``, from torch.profiler:
+    the operations whose name holds one of ``names``, or with no
+    ``names`` every operation but those whose name holds one of ``skip``
+    (the flush's).  The calls launch ``expect`` operations each named by
+    ``names`` (with ``skip``: each flush launches ``expect`` named by
+    ``skip``).  On the H100 a profile lost the first two or three device
+    operations of its window, so four small operations (``PRIMER_NAME``)
+    open it; a profile that still shows fewer than expected is taken
+    again, up to three times, and the last one's times are taken per
+    call over the calls it shows (the share seen, the third value)."""
+    from torch.profiler import ProfilerActivity, profile
+    primer = torch.zeros(1, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                primer.exp_()
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and PRIMER_NAME not in e.name]
+        if names:
+            mine = [e for e in evs if any(n in e.name for n in names)]
+            seen = len(mine)
+        else:
+            mine = [e for e in evs if not any(n in e.name for n in skip)]
+            seen = len(evs) - len(mine)
+        if seen == expect * reps:
+            break
+    us = sum(getattr(e, "device_time_total", None)
+             or getattr(e, "cuda_time_total", 0) for e in mine)
+    if not (seen > 0 and us > 0):
+        raise AssertionError(f"torch.profiler recorded no device time for "
+                             f"{names or 'the calls'}")
+    calls = seen / expect
+    return us / 1e3 / calls, len(mine) / calls, seen / (expect * reps)
+
+
+def _gather_probes(torch, np, kernels, probes, precs, gen):
+    """Phase 10's probe shapes: P1 against ``x.clone()`` in 12 pairs; P3
+    and ``embedding_bag`` at both probe pools, timed as the probe timed
+    them and in 12 pairs; at the 256 MB pool P3 after a write flush and
+    after a read flush (with and without the settling sleep), single
+    calls in turns, and P3's kernel time from torch.profiler after each
+    flush."""
+    import torch.nn.functional as F
+    out = {}
+    x = torch.arange(1024, dtype=torch.float32, device="cuda").reshape(8,
+                                                                      128)
+    out["p1_vs_clone"] = _interleaved(
+        lambda: kernels.probe_copy_cuda(x), lambda: x.clone(),
+        lambda fn: probes.cuda_ms(fn, 50))
+    pa, pb = (torch.randn((128, 128), generator=gen, device="cuda")
+              for _ in range(2))
+    out["p_lib"] = [probes.cuda_ms(lambda: x.clone(), 50),
+                    probes.cuda_ms(lambda: torch.matmul(pa, pb), 50)]
+    flush = probes.l2_flush("cuda")
+    for r in [r for r in precs if r["variant"] == "gather"]:
+        # the probe's pool and indices (the same seeds); embedding_bag
+        # sums each group of PER packed rows into (G, 8c)
+        rows = int(r["pool_mb"] * 2**20) // (probes.WIDTH * 4)
+        pool8 = torch.randn((rows // 8, 8 * probes.WIDTH), device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(rows))
+        idx32 = torch.as_tensor(probes.gather_indices(rows, probes.NIDX),
+                                device="cuda")
+        gidx = idx32.long().view(-1, probes.PER)
+
+        def p3():
+            return kernels.probe_gather_cuda(pool8, idx32, probes.PER)
+
+        def bag():
+            return F.embedding_bag(gidx, pool8, mode="sum")
+        ref = probes.gather_plain(pool8, idx32, probes.PER)
+        bag_err = float((bag().view(ref.shape) - ref).abs().max())
+        if not bag_err <= 1e-5 * float(ref.abs().max()):
+            raise AssertionError(f"embedding_bag differs from the plain "
+                                 f"gather by {bag_err:.3e}")
+        cold = r["l2"] == "cold"
+        if cold:
+            def sample(fn):
+                return probes.cuda_ms_cold(fn, 5, flush)
+        else:
+            def sample(fn):
+                return probes.cuda_ms(fn, 20)
+        r["library_ms"] = (probes.cuda_ms_cold(bag, 20, flush) if cold
+                           else probes.cuda_ms(bag, 20))
+        r["library"] = "embedding_bag(mode='sum')"
+        r["pairs_vs_library"] = _interleaved(p3, bag, sample)
+        r["profiled_ms"], _, r["profiled_share_seen"] = _profiled_ms(
+            torch, p3, flush if cold else (lambda: None), P3_NAMES)
+        if not cold:
+            continue
+        # does the write flush put write-backs of dirty L2 lines inside
+        # the timed call, and does the host's enqueue time fall inside it
+        # without the settling sleep?  Single calls, in turns
+        fl = {how: probes.l2_flush("cuda", how) for how in ("write",
+                                                           "read")}
+        conds = {"write": (fl["write"], True), "read": (fl["read"], True),
+                 "write, no settle": (fl["write"], False)}
+        times = {k: [] for k in conds}
+        for rnd in range(24):
+            keys = list(conds) if rnd % 2 == 0 else list(conds)[::-1]
+            for k in keys:
+                f, settle = conds[k]
+                times[k].append(probes.cuda_ms_cold(p3, 1, f, settle))
+        out["flush_study"] = dict(
+            calls={k: _stats(v) for k, v in times.items()},
+            profiled_ms={how: _profiled_ms(torch, p3, fl[how], P3_NAMES)[0]
+                         for how in fl},
+            chosen=probes.COLD_FLUSH)
+        del fl
+    return out
+
+
+def _ladder_tables(np, plan):
+    """The ladder sums of one factorize of ``plan`` in the executor's
+    order, (segment, step, class, ladder index) each; the contribution
+    rows (``ntot``) of each (segment, class) call buffer, less its zero
+    row; and for every (c, m) the sum at the step with the largest R,
+    then the most real entries."""
+    sums, ntot, pick = [], {}, {}
+    for k, seg in enumerate(plan.segments):
+        for t in range(seg.nsteps):
+            for ci, ent in enumerate(seg.gsc or ()):
+                if ent is None:
+                    continue
+                ntot[k, ci] = int(ent["ntot"])
+                for li, (m, g) in enumerate(zip(ent["ladder"],
+                                                ent["gidx"])):
+                    sums.append((k, t, ci, li))
+                    key = (g.shape[1], int(np.count_nonzero(g[t])))
+                    cm = (plan.classes[ci], m)
+                    if cm not in pick or key > pick[cm][0]:
+                        pick[cm] = (key, (k, t, ci, li))
+    return sums, ntot, {cm: s for cm, (_, s) in pick.items()}
+
+
+def _ladder_sums(torch, np, kernels, probes, plan, ex, gen):
+    """Phase 10: P3 at the main path's ladder sums, not wired into the
+    executor.  For every (class, ladder m) the step with the largest R:
+    a call buffer of that step's ntot + 1 rows x c (seeded random values,
+    row 0 zero), written right before each timed call as the executor's
+    ``torch.cat`` writes it; ``gather_sum_cuda``, the executor's
+    ``call[gi[t]].sum(dim=1)`` and ``embedding_bag`` on it, the kernel
+    and the library within 1e-5 of the largest |sum| of the plain one;
+    each timed by CUDA events (median of 10 calls) and by its device time
+    in torch.profiler.  Then every ladder sum of one factorize in the
+    executor's order, each after its call buffer's write: the device time
+    of each method's pass from torch.profiler, the writes left out."""
+    import torch.nn.functional as F
+    sums, ntot, pick = _ladder_tables(np, plan)
+    classes = plan.classes
+    calls, srcs = {}, {}
+    for ci in {ci for _, ci in ntot}:
+        n = max(v for (_, cj), v in ntot.items() if cj == ci) + 1
+        calls[ci] = torch.empty((n, classes[ci]), device="cuda")
+        srcs[ci] = torch.randn((n, classes[ci]), generator=gen,
+                               device="cuda")
+        srcs[ci][0].zero_()
+
+    def buf(k, ci):
+        return calls[ci][:ntot[k, ci] + 1]
+
+    def fill(k, ci):
+        n = ntot[k, ci] + 1
+        return lambda: torch.mul(srcs[ci][:n], 1.0, out=calls[ci][:n])
+
+    def gi(k, t, ci, li):
+        return ex._segs[k].gsc[ci]["gidx"][li][t]
+
+    def m_of(k, ci, li):
+        return plan.segments[k].gsc[ci]["ladder"][li]
+
+    methods = {
+        "kernel": lambda b, g, m: kernels.gather_sum_cuda(b, g.view(-1), m),
+        "plain": lambda b, g, m: b[g].sum(dim=1),
+        "library": lambda b, g, m: F.embedding_bag(g, b, mode="sum")}
+    nbytes = {}
+    for s in sums:
+        k, t, ci, li = s
+        nbytes[s] = probes.gather_bytes(
+            plan.segments[k].gsc[ci]["gidx"][li][t], m_of(k, ci, li),
+            classes[ci])
+    shapes = []
+    for (c, m), s in sorted(pick.items()):
+        k, t, ci, li = s
+        b, g = buf(k, ci), gi(*s)
+        fill(k, ci)()
+        ref = methods["plain"](b, g, m)
+        bar = 1e-5 * float(ref.abs().max())
+        rec = dict(c=c, m=m, R=int(g.shape[0]), segment=k, step=t,
+                   call_rows=int(b.shape[0]), bytes=nbytes[s], bar=bar)
+        for name in ("kernel", "library"):
+            err = float((methods[name](b, g, m) - ref).abs().max())
+            if not err <= bar:
+                raise AssertionError(f"ladder sum (c, m) = ({c}, {m}): "
+                                     f"{name} |d| {err:.3e} > {bar:.3e}")
+            rec[f"{name}_max_abs_err"] = err
+        for name, fn in methods.items():
+            call = functools.partial(fn, b, g, m)
+            rec[f"{name}_event_ms"] = probes.cuda_ms_cold(call, 10,
+                                                          fill(k, ci))
+            (rec[f"{name}_ms"], rec[f"{name}_ops"],
+             rec[f"{name}_share_seen"]) = _profiled_ms(
+                torch, call, fill(k, ci), skip=(FILL_NAME,))
+        rec["bound_ms"] = _bound(nbytes[s], 0)[0]
+        shapes.append(rec)
+
+    def one_pass(fn):
+        last = None
+        for k, t, ci, li in sums:
+            if (k, t, ci) != last:
+                fill(k, ci)()
+                last = (k, t, ci)
+            fn(buf(k, ci), gi(k, t, ci, li), m_of(k, ci, li))
+        torch.cuda.synchronize()
+
+    # device time of one pass per method, the buffer writes left out
+    fills = len({s[:3] for s in sums})
+    prof = {name: _profiled_ms(
+        torch, functools.partial(one_pass, fn), lambda: None, reps=1,
+        skip=(FILL_NAME,), expect=fills)
+        for name, fn in methods.items()}
+    # the writes are told apart by name: P3's pass shows one operation
+    # per sum besides them, within what a lossy profile allows (a write
+    # counted as a sum would add one operation per call buffer)
+    if abs(prof["kernel"][1] - len(sums)) > 0.1 * len(sums):
+        raise AssertionError(f"the kernel's pass ran {prof['kernel'][1]} "
+                             f"device operations besides the buffer writes "
+                             f"for {len(sums)} sums")
+    total = sum(nbytes.values())
+    return dict(
+        sums=len(sums), call_buffers=fills, bytes=total,
+        bound_ms=_bound(total, 0)[0],
+        **{f"{name}_ms": prof[name][0] for name in methods},
+        **{f"{name}_ops": prof[name][1] for name in methods},
+        **{f"{name}_share_seen": prof[name][2] for name in methods},
+        shapes=shapes)
+
+
+def _probe_phase(torch, np, kernels, plan, ex, gen, card):
+    """Phase 10 (the module docstring): the probes, then P3 at the main
+    path's ladder sums."""
+    from parsy_bench_tpu_torch import probes
+    pk = (kernels.probe_copy_cuda, kernels.probe_matmul_cuda,
+          kernels.gather_sum_cuda)
+    for f in pk:
+        f.launches = 0
+    precs = probes.run()
+    plaunch = [f.launches for f in pk]
+    extra = _gather_probes(torch, np, kernels, probes, precs, gen)
+    for r in precs:
+        if r["variant"] == "gather":
+            r["bound_ms"], r["bound_by"] = _bound(r["bytes"], 0)
+        print("probe", json.dumps(r))
+    print("P1 vs x.clone()", json.dumps(extra["p1_vs_clone"]))
+    print("P3 flush study, 256 MB pool", json.dumps(extra["flush_study"]))
+    ladder = _ladder_sums(torch, np, kernels, probes, plan, ex, gen)
+    for r in ladder["shapes"]:
+        print("ladder shape", json.dumps(r))
+    print("ladder pass", json.dumps(
+        {k: v for k, v in ladder.items() if k != "shapes"}))
+    gathers = [r for r in precs if r["variant"] == "gather"]
+    x = 8 * 128 * 4
+    return dict(
+        precs=precs, plaunch=plaunch, gathers=gathers, ladder=ladder,
+        p1_pairs=extra["p1_vs_clone"], flush_study=extra["flush_study"],
+        p_lib=extra["p_lib"] + [gathers[0]["library_ms"]],
+        # the copy's bytes; the product's bytes and FLOPs; the warm
+        # gather's bytes from its own indices
+        p_work=[(2 * x, 0), (3 * 128 * 128 * 4, 2 * 128 ** 3),
+                (gathers[0]["bytes"], probes.NIDX * 8 * probes.WIDTH)],
+        card=card)
 
 
 def _scatter_phase(torch, np, kernels, a, cfg, card):
@@ -644,6 +950,12 @@ def _scatter_phase(torch, np, kernels, a, cfg, card):
     times = sorted(_sync_s(torch, solver.factorize)[0] for _ in range(5))
     launches = kernels.cholesky_inverse_cuda.launches
     k1_per_replay = prog.launches["cholesky_inverse_cuda"]
+    # P3 is measured at the ladder sums (phase 10), not wired in
+    p3_main = kernels.gather_sum_cuda.launches
+    if p3_main != 0:
+        raise AssertionError(f"the main path's run launched P3 {p3_main} "
+                             f"times; the executor runs the plain ladder "
+                             f"sums")
     if (launches, k1_per_replay) != (2 * expected, expected):
         raise AssertionError(f"scatter mode: K1 counted {launches} launches "
                              f"and {k1_per_replay} in the capture; the plan "
@@ -1360,6 +1672,12 @@ def main() -> int:
     times = [_sync_s(torch, solver.factorize)[0] for _ in range(5)]
     launches = kernels.cholesky_inverse_cuda.launches
     k1_per_replay = prog.launches["cholesky_inverse_cuda"]
+    # P3 is measured at the ladder sums (phase 10), not wired in
+    p3_main = kernels.gather_sum_cuda.launches
+    if p3_main != 0:
+        raise AssertionError(f"the main path's run launched P3 {p3_main} "
+                             f"times; the executor runs the plain ladder "
+                             f"sums")
     if (launches, k1_per_replay) != (2 * expected, expected):
         raise AssertionError(
             f"K1 counted {launches} launches in the main path's run and "
@@ -1419,6 +1737,7 @@ def main() -> int:
         k1_device_ms=k1_dev_ms, k1_launches_main_path_run=launches,
         k1_launches_per_replay=k1_per_replay,
         k1_profiled_launches_per_replay=k1_prof_n,
+        p3_launches_main_path_run=p3_main,
         update_delta=cfg.update_delta, card=card)
     print(json.dumps(main))
 
@@ -1597,65 +1916,8 @@ def main() -> int:
         card=card)
     print("solves", json.dumps(solves))
 
-    # ---- 10. the probes -------------------------------------------------
-    from parsy_bench_tpu_torch import probes
-    pk = (kernels.probe_copy_cuda, kernels.probe_matmul_cuda,
-          kernels.probe_gather_cuda)
-    for f in pk:
-        f.launches = 0
-    precs = probes.run()
-    plaunch = [f.launches for f in pk]
-    for r in precs:
-        print("probe", json.dumps(r))
-    gathers = [r for r in precs if r["variant"] == "gather"]
-    # the yardsticks of P1 and P2 (one PyTorch call each) at their shapes,
-    # and each probe's bound from its inputs
-    x = torch.arange(1024, dtype=torch.float32, device="cuda").reshape(8,
-                                                                      128)
-    pa, pb = (torch.randn((128, 128), generator=gen, device="cuda")
-              for _ in range(2))
-    p_lib = [probes.cuda_ms(lambda: x.clone(), 50),
-             probes.cuda_ms(lambda: torch.matmul(pa, pb), 50)]
-    # P3's yardstick, one call: embedding_bag sums each group of PER
-    # packed rows, (G, 8c), the plain gather's (G, 8, c) as a view; on
-    # each probe pool (the same seeds), as the probe timed it
-    flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
-    for r in gathers:
-        rows = int(r["pool_mb"] * 2**20) // (probes.WIDTH * 4)
-        pool8 = torch.randn((rows // 8, 8 * probes.WIDTH), device="cuda",
-                            generator=torch.Generator(device="cuda")
-                            .manual_seed(rows))
-        gidx = torch.as_tensor(probes.gather_indices(rows, probes.NIDX),
-                               device="cuda").long().view(-1, probes.PER)
-
-        def bag():
-            return torch.nn.functional.embedding_bag(gidx, pool8,
-                                                     mode="sum")
-        ref = probes.gather_plain(pool8, gidx.view(-1), probes.PER)
-        bag_err = float((bag().view(ref.shape) - ref).abs().max())
-        if not bag_err <= 1e-5 * float(ref.abs().max()):
-            raise AssertionError(f"embedding_bag differs from the plain "
-                                 f"gather by {bag_err:.3e}")
-        r["library_ms"] = (probes.cuda_ms_cold(bag, 20, flush)
-                           if r["l2"] == "cold" else probes.cuda_ms(bag, 20))
-        r["library"] = "embedding_bag(mode='sum')"
-        if r["l2"] == "cold":
-            idx32 = gidx.view(-1).int()
-            p3_vs_bag = _interleaved(
-                probes, lambda: kernels.probe_gather_cuda(
-                    pool8, idx32, probes.PER), bag, flush)
-            print("P3 vs embedding_bag, 256 MB pool, L2 flushed",
-                  json.dumps(p3_vs_bag))
-    del flush, pool8
-    p_lib.append(gathers[0]["library_ms"])
-    width = probes.WIDTH
-    uniq = len(np.unique(probes.gather_indices(probes.ROWS, probes.NIDX)))
-    p_work = [(2 * x.numel() * 4, 0),
-              (3 * 128 * 128 * 4, 2 * 128 ** 3),
-              # the distinct packed rows gathered, the indices, the sums
-              (uniq * 8 * width * 4 + probes.NIDX * 4
-               + probes.NIDX // probes.PER * 8 * width * 4,
-               probes.NIDX * 8 * width)]
+    # ---- 10. the probes, and P3 at the main path's ladder sums --------
+    probe = _probe_phase(torch, np, kernels, plan, ex, gen, card)
 
     # ---- 11. the scatter update mode at n = 110,592 -------------------
     scatter = _scatter_phase(torch, np, kernels, a, cfg, card)
@@ -1729,15 +1991,15 @@ def main() -> int:
     k2_path = [r for r in k2 if r["shape"][2] <= 64]
     rank_k1 = [r["k1_checks"] for r in multi["runs"] if "k1_checks" in r]
 
-    def probe_entry(name, line, rec, launches, k, **extra):
-        bound_ms, bound_by = _bound(*p_work[k])
+    def probe_entry(name, line, rec, k, **extra):
+        bound_ms, bound_by = _bound(*probe["p_work"][k])
         return dict(name=name, route="cuda",
                     source="parsy_bench_tpu_torch/csrc/probes.cu",
-                    replaces=line, launches=launches,
+                    replaces=line, launches=probe["plaunch"][k],
                     max_abs_err=max(r["max_abs_err"] for r in rec),
                     ms=rec[0]["ms"], plain_ms=rec[0]["plain_ms"],
                     bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=p_lib[k], runs=rec, **extra)
+                    library_ms=probe["p_lib"][k], runs=rec, **extra)
 
     def summed(recs):
         """ms, plain_ms, library_ms and bound_ms of one call at each shape
@@ -1787,11 +2049,17 @@ def main() -> int:
              # one call at each fused-path shape checked (c = 32)
              **summed(k2_path), shapes=k2 + [k2_leaf] + k2_f64),
         probe_entry("probe_copy", "scripts/pallas_probe.py:19",
-                    [precs[0]], plaunch[0], 0),
+                    [probe["precs"][0]], 0,
+                    pairs_vs_library=probe["p1_pairs"]),
         probe_entry("probe_matmul", "scripts/pallas_probe.py:34",
-                    [precs[1]], plaunch[1], 1),
+                    [probe["precs"][1]], 1),
+        # each run with its own bytes and bound; the ladder sums of one
+        # factorize (the kernel is not wired into the executor: 0 launches
+        # in the main path's run)
         probe_entry("probe_gather", "scripts/pallas_gather_probe.py:83",
-                    gathers, plaunch[2], 2, hbm_pairs=p3_vs_bag),
+                    probe["gathers"], 2, main_path_launches=p3_main,
+                    flush_study=probe["flush_study"],
+                    ladder=probe["ladder"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,8 @@ functions of ``probes.py``).
     K2  finalize_fused_cuda     csrc/finalize_fused.cu
     P1  probe_copy_cuda         csrc/probes.cu
     P2  probe_matmul_cuda       csrc/probes.cu
-    P3  probe_gather_cuda       csrc/probes.cu
+    P3  gather_sum_cuda         csrc/probes.cu (``probe_gather_cuda``
+                                is the TPU probe's (G, 8, c) view of it)
 
 The kernels are built (``ops/build.py``) and loaded on the first launch,
 never at import.
@@ -39,7 +40,7 @@ _SIGNATURES = {
     "pbt_finalize_fused_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pbt_probe_copy_f32": [_P, _P, _I, _P],
     "pbt_probe_matmul_f32": [_P, _P, _P, _I, _I, _I, _P],
-    "pbt_probe_gather_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "pbt_gather_sum_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -186,7 +187,10 @@ finalize_fused_cuda.launches = 0
 
 def probe_copy_cuda(x: torch.Tensor):
     """Probe P1: a copy of an f32 tensor by a kernel of ``csrc/probes.cu``
-    (replaces ``scripts/pallas_probe.py`` ``_copy_kernel_result``)."""
+    (replaces ``scripts/pallas_probe.py`` ``_copy_kernel_result``),
+    launched as a programmatic dependent launch: its launch overlaps the
+    tail of the kernel before it, and it reads and writes only after that
+    kernel has finished."""
     _check_cuda("probe_copy_cuda", x)
     _check_dtype("probe_copy_cuda", x, (torch.float32,))
     if x.numel() >= 2**31:
@@ -225,43 +229,59 @@ def probe_matmul_cuda(a: torch.Tensor, b: torch.Tensor):
 probe_matmul_cuda.launches = 0
 
 
-def probe_gather_cuda(pool8: torch.Tensor, idx: torch.Tensor, per: int):
-    """Probe P3: pool8 (rows8, 8c) f32 packed pool, idx (nidx,) int32 ->
-    (nidx / per, 8, c), group g summing the packed rows
-    ``pool8[idx[g*per + k]]`` over k < per; a kernel of ``csrc/probes.cu``
-    (replaces ``scripts/pallas_gather_probe.py`` ``pallas_gather``).  An
-    index outside [0, rows8) reads nothing and makes its group NaN."""
-    _check_cuda("probe_gather_cuda", pool8, idx)
-    _check_dtype("probe_gather_cuda", pool8, (torch.float32,))
-    _check_dtype("probe_gather_cuda", idx, (torch.int32,))
-    if idx.dim() != 1 or pool8.dim() != 2:
-        raise ValueError(f"expected pool8 (rows8, 8c) and idx (nidx,), got "
-                         f"{tuple(pool8.shape)} and {tuple(idx.shape)}")
-    rows8, width = pool8.shape
+def gather_sum_cuda(pool: torch.Tensor, idx: torch.Tensor, per: int):
+    """Probe P3, the gather-and-sum: pool (rows, w) f32 with w % 4 == 0,
+    idx (G * per,) int32 -> (G, w), group g summing the rows
+    ``pool[idx[g*per + k]]`` over k < per; a kernel of ``csrc/probes.cu``
+    (replaces ``scripts/pallas_gather_probe.py`` ``pallas_gather``).  The
+    executor's ladder sums ``call[gi[t]].sum(1)`` are this function with
+    pool = call and idx = ``gi[t].flatten()``.  An index outside
+    [0, rows) reads nothing and makes its group NaN."""
+    _check_cuda("gather_sum_cuda", pool, idx)
+    _check_dtype("gather_sum_cuda", pool, (torch.float32,))
+    _check_dtype("gather_sum_cuda", idx, (torch.int32,))
+    if idx.dim() != 1 or pool.dim() != 2:
+        raise ValueError(f"expected pool (rows, w) and idx (G * per,), got "
+                         f"{tuple(pool.shape)} and {tuple(idx.shape)}")
+    rows, w = pool.shape
     per = int(per)
     if per < 1 or idx.numel() % per:
         raise ValueError(f"{idx.numel()} indices are not groups of {per}")
-    if width % 32 or pool8.data_ptr() % 16 or rows8 >= 2**31:
-        raise ValueError("pool8 rows must be 8c wide with c a multiple of 4 "
-                         "and start 16-byte aligned")
+    if w % 4 or pool.data_ptr() % 16:
+        raise ValueError("pool rows must be a multiple of 4 floats wide and "
+                         "start 16-byte aligned")
     G = idx.numel() // per
-    out = torch.empty((G, 8, width // 8), dtype=pool8.dtype,
-                      device=pool8.device)
-    if G == 0:
+    if rows >= 2**31 or 32 * G * -(-w // 128) >= 2**31:
+        raise ValueError(f"pool ({rows}, {w}) with {G} groups exceeds the "
+                         f"int32 counts")
+    out = torch.empty((G, w), dtype=pool.dtype, device=pool.device)
+    if G == 0 or w == 0:
         return out
-    _launch("probe_gather", _load().pbt_probe_gather_f32, pool8.device,
-            pool8.data_ptr(), idx.data_ptr(), out.data_ptr(), rows8, width,
-            G, per)
-    probe_gather_cuda.launches += 1
+    _launch(f"gather_sum at (G, per, w) = ({G}, {per}, {w})",
+            _load().pbt_gather_sum_f32, pool.device, pool.data_ptr(),
+            idx.data_ptr(), out.data_ptr(), rows, w, G, per)
+    gather_sum_cuda.launches += 1
     return out
 
 
-probe_gather_cuda.launches = 0
+gather_sum_cuda.launches = 0
+
+
+def probe_gather_cuda(pool8: torch.Tensor, idx: torch.Tensor, per: int):
+    """The TPU probe's view of ``gather_sum_cuda``: pool8 (rows8, 8c) f32
+    packed pool, idx (nidx,) int32 packed-row starts -> (nidx / per, 8,
+    c)."""
+    if pool8.dim() != 2 or pool8.shape[1] % 8:
+        raise ValueError(f"expected pool8 (rows8, 8c), got "
+                         f"{tuple(pool8.shape)}")
+    out = gather_sum_cuda(pool8, idx, per)
+    return out.view(out.shape[0], 8, pool8.shape[1] // 8)
+
 
 #: the counted wrappers, by module attribute (so that a stand-in bound to
 #: the same name is counted too)
 _WRAPPERS = ("cholesky_inverse_cuda", "finalize_fused_cuda",
-             "probe_copy_cuda", "probe_matmul_cuda", "probe_gather_cuda")
+             "probe_copy_cuda", "probe_matmul_cuda", "gather_sum_cuda")
 
 
 def launch_counts() -> dict:

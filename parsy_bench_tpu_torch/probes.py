@@ -5,6 +5,10 @@ product, to show that hand-written kernels build and run) and
 ``scripts/pallas_gather_probe.py`` (the 8-row packed gather-and-sum that
 bounds the update gathers).  The kernels are in ``csrc/probes.cu``, bound
 in ``ops/kernels.py``; each stands beside its plain PyTorch version here.
+P3 is a general gather-and-sum (``gather_sum_plain``; the kernel
+``kernels.gather_sum_cuda``) over rows of any width that is a multiple of
+4 floats, which also computes the executor's ladder sums;
+``probe_gather`` is the TPU probe's packed view of it.
 
     python -m parsy_bench_tpu_torch.probes
 
@@ -15,6 +19,7 @@ and exits 2 without one.
 from __future__ import annotations
 
 import json
+import statistics
 import sys
 
 import numpy as np
@@ -38,12 +43,20 @@ def matmul_plain(a, b):
     return torch.matmul(a, b)
 
 
+def gather_sum_plain(pool, idx, per):
+    """pool (rows, w), idx (G * per,) -> (G, w): group g sums the rows
+    pool[idx[g*per + k]] over k < per (the executor's ladder sum
+    ``call[gi[t]].sum(1)`` with idx = ``gi[t].flatten()``)."""
+    G = idx.numel() // per
+    return pool[idx.long()].view(G, per, pool.shape[1]).sum(1)
+
+
 def gather_plain(pool8, idx, per):
     """pool8 (rows8, 8c), idx (nidx,) -> (nidx / per, 8, c): group g sums
     the packed rows pool8[idx[g*per + k]] over k < per (the TPU probe's
     ``xla_take``, with every group kept)."""
-    G = idx.numel() // per
-    return pool8[idx.long()].view(G, per, 8, pool8.shape[1] // 8).sum(1)
+    out = gather_sum_plain(pool8, idx, per)
+    return out.view(out.shape[0], 8, pool8.shape[1] // 8)
 
 
 # ----------------------------------------------------------- dispatchers
@@ -66,7 +79,8 @@ def probe_matmul(a, b):
 
 
 def probe_gather(pool8, idx, per=PER):
-    """P3: the kernel for CUDA tensors, ``gather_plain`` for CPU ones."""
+    """P3 at the TPU probe's layout: the kernel for CUDA tensors,
+    ``gather_plain`` for CPU ones."""
     return _route(pool8, kernels.probe_gather_cuda, gather_plain, pool8,
                   idx, per)
 
@@ -75,6 +89,14 @@ def gather_indices(rows, nidx, seed=0):
     """The probe's packed-row starts: uniform in [0, rows / 8)."""
     return (np.random.default_rng(seed).integers(0, rows // 8, nidx)
             .astype(np.int32))
+
+
+def gather_bytes(idx, per, w, itemsize=4):
+    """Bytes a gather-and-sum must move, from its own indices: each
+    distinct row read once, the indices, and the (G, w) sums written."""
+    idx = np.asarray(idx)
+    return (len(np.unique(idx)) * w * itemsize + idx.size * 4
+            + idx.size // per * w * itemsize)
 
 
 # ---------------------------------------------------------------- timing
@@ -104,21 +126,51 @@ def cuda_ms(fn, reps, warm=2):
     return start.elapsed_time(end) / reps
 
 
-def cuda_ms_cold(fn, reps, flush):
-    """Mean milliseconds per call, each call timed alone with CUDA events
-    after ``flush`` (a write larger than L2) evicted the cache."""
+def cuda_ms_cold(fn, reps, flush, settle=True):
+    """Median milliseconds of ``reps`` calls, each timed alone with CUDA
+    events after ``flush()`` evicted L2 (``l2_flush``).  With ``settle``
+    a device sleep of about 100 µs (it touches no memory) follows the
+    flush, so the host has enqueued the call before its start event is
+    reached.  On the H100 single cold calls of P3 read 0.023-0.070 ms
+    without the sleep and 0.015 ms with it (after a write flush); with
+    it, a call now and then still caught a host stall inside its window
+    (0.035-0.065 ms; chip_smoke.py phase 10's flush study), so the median
+    and not the mean is returned."""
     fn()
-    total = 0.0
+    times = []
     for _ in range(reps):
-        flush.zero_()
+        flush()
+        if settle:
+            torch.cuda._sleep(_SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+#: bytes the L2 flush moves: 128 MB, over twice the H100's 50 MB L2
+FLUSH_BYTES = 128 * 2**20
+#: how the cold runs evict L2 (``l2_flush``): on the H100 a write flush
+#: added 0.0023 ms of write-backs to P3's cold kernel time (0.0111 against
+#: 0.0088 ms), time that belongs to the flush, not to the call
+COLD_FLUSH = "read"
+
+
+def l2_flush(device, how=COLD_FLUSH):
+    """A call that evicts L2 before a cold call: ``"read"`` sums a 128 MB
+    buffer, which leaves L2 holding clean lines; ``"write"`` zeroes it,
+    which leaves it holding dirty lines, whose write-backs then fall
+    inside the next call as it evicts them."""
+    buf = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+    if how == "read":
+        return lambda: buf.sum()
+    if how == "write":
+        return buf.zero_
+    raise ValueError(f"unknown flush {how!r}")
 
 
 # ----------------------------------------------------------------- probes
@@ -156,7 +208,8 @@ def _gather_record(dev, rows, cold):
     gen = torch.Generator(device=dev).manual_seed(rows)
     pool8 = torch.randn((rows // 8, 8 * WIDTH), generator=gen, device=dev,
                         dtype=torch.float32)
-    idx = torch.as_tensor(gather_indices(rows, NIDX), device=dev)
+    idx_np = gather_indices(rows, NIDX)
+    idx = torch.as_tensor(idx_np, device=dev)
     out = probe_gather(pool8, idx, PER)
     ref = gather_plain(pool8, idx, PER)
     err = float((out - ref).abs().max())
@@ -165,19 +218,20 @@ def _gather_record(dev, rows, cold):
         raise AssertionError(f"P3 gather at {rows} rows: |d| {err:.3e} > "
                              f"{bar:.3e}")
     if cold:
-        # 128 MB written between calls evicts the 50 MB L2
-        flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+        flush = l2_flush(dev)
         ms = cuda_ms_cold(lambda: probe_gather(pool8, idx, PER), 20, flush)
         plain_ms = cuda_ms_cold(lambda: gather_plain(pool8, idx, PER), 20,
                                 flush)
     else:
         ms = cuda_ms(lambda: probe_gather(pool8, idx, PER), 20)
         plain_ms = cuda_ms(lambda: gather_plain(pool8, idx, PER), 20)
-    nbytes = NIDX * 8 * WIDTH * 4
+    nbytes = gather_bytes(idx_np, PER, 8 * WIDTH)
     return dict(variant="gather", pool_mb=rows * WIDTH * 4 / 2**20,
-                l2="cold" if cold else "warm", nidx=NIDX, per=PER,
-                max_abs_err=err, bar=bar, ms=ms, plain_ms=plain_ms,
-                gb_per_s=nbytes / ms / 1e6,
+                l2="cold" if cold else "warm",
+                flush=COLD_FLUSH if cold else None,
+                nidx=NIDX, per=PER, distinct_rows=len(np.unique(idx_np)),
+                bytes=nbytes, max_abs_err=err, bar=bar, ms=ms,
+                plain_ms=plain_ms, gb_per_s=nbytes / ms / 1e6,
                 plain_gb_per_s=nbytes / plain_ms / 1e6,
                 rows_per_s=NIDX * 8 / ms * 1e3,
                 plain_rows_per_s=NIDX * 8 / plain_ms * 1e3)
@@ -187,7 +241,8 @@ def run(device="cuda") -> list:
     """Every probe on the card, each held against its plain version and
     timed with it; raises on a disagreement.  Returns one record per
     variant (P3 twice: the probe's 32 MB pool with a warm L2, and a 256 MB
-    pool with L2 flushed before every call)."""
+    pool with L2 flushed before every call).  A gather's ``bytes`` come
+    from its own indices (``gather_bytes``)."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError("the probes run on a CUDA device")

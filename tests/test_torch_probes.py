@@ -88,16 +88,67 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     x = torch.zeros((8, 128))
     counts = [f.launches for f in (kernels.probe_copy_cuda,
                                    kernels.probe_matmul_cuda,
-                                   kernels.probe_gather_cuda)]
+                                   kernels.gather_sum_cuda)]
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.probe_copy_cuda(x)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.probe_matmul_cuda(x, x.T)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.probe_gather_cuda(x, torch.zeros(4, dtype=torch.int32), 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.gather_sum_cuda(x, torch.zeros(4, dtype=torch.int32), 4)
     assert counts == [f.launches for f in (kernels.probe_copy_cuda,
                                            kernels.probe_matmul_cuda,
-                                           kernels.probe_gather_cuda)]
+                                           kernels.gather_sum_cuda)]
+
+
+@pytest.fixture(scope="module")
+def ladder_plan():
+    """laplace_3d(8), ND, f32, supernodal: its segments' ladder tables
+    (``gsc``), which ``splan._build_gather_tables`` built, hold both
+    width classes."""
+    from parsy_bench_tpu_torch import CholeskySolver, SolverConfig
+    from parsy_bench_tpu_torch.core import generate
+    return CholeskySolver(generate.laplace_3d(8), SolverConfig(
+        ordering="nd", dtype="float32", tier="supernodal"),
+        device="cpu").plan
+
+
+@pytest.mark.parametrize("c", [32, 128])
+def test_gather_sum_plain_is_the_ladder_sum(ladder_plan, c):
+    """At every ladder sum of the plan's class c: ``gather_sum_plain(call,
+    gi[t].flatten(), m)`` is the executor's ``call[gi[t]].sum(dim=1)``
+    bit for bit, on a call buffer whose row 0 is the zero row, and within
+    1e-5 of the largest |sum| of a float64 numpy sum."""
+    ci = ladder_plan.classes.index(c)
+    rng = np.random.default_rng(c)
+    n = 0
+    for seg in ladder_plan.segments:
+        ent = (seg.gsc or [None] * (ci + 1))[ci]
+        if ent is None:
+            continue
+        call = rng.standard_normal((ent["ntot"] + 1, c)).astype(np.float32)
+        call[0] = 0.0
+        tcall = torch.as_tensor(call)
+        for m, g in zip(ent["ladder"], ent["gidx"]):
+            assert g.dtype == np.int32 and g.shape[2] == m
+            for t in range(seg.nsteps):
+                gi = torch.as_tensor(g[t])
+                ref = tcall[gi].sum(dim=1)
+                out = probes.gather_sum_plain(tcall, gi.flatten(), m)
+                assert torch.equal(out, ref)
+                ref64 = call[g[t]].astype(np.float64).sum(1)
+                assert np.abs(out.numpy() - ref64).max() \
+                    <= 1e-5 * max(np.abs(ref64).max(), 1e-30)
+                n += 1
+    assert n > 0
+
+
+def test_gather_bytes_counts_distinct_rows():
+    """Each distinct row once, the indices, the sums: 3 distinct rows of
+    w = 8 among 6 indices in 2 groups."""
+    idx = np.array([5, 5, 1, 0, 1, 5], dtype=np.int32)
+    assert probes.gather_bytes(idx, 3, 8) == 3 * 8 * 4 + 6 * 4 + 2 * 8 * 4
 
 
 def test_import_builds_nothing_and_entry_point_needs_a_card():

@@ -1,13 +1,17 @@
-// A stand-in for <cuda_runtime.h> that lets the port's CUDA sources K1
-// and K2 (parsy_bench_tpu_torch/csrc/chol_inverse.cu, finalize_fused.cu
-// and chol_blocked.cuh) be compiled with g++ and run on the CPU, for
-// correctness only.  It covers the subset they use: one std::thread per
-// CUDA thread, the blocks of a grid one after another, std::barrier for
-// __syncthreads and __syncwarp,
-// __shfl_sync through a per-warp exchange array, and dynamic shared memory
-// poisoned with 0xFF bytes (NaN) before each block, so that a read of a
-// slot no thread wrote shows in the result.  emu.py rewrites the
-// source's <<<>>> launches into emu_launch calls and builds it.
+// A stand-in for <cuda_runtime.h> that lets the port's CUDA sources K1,
+// K2 and the probes (parsy_bench_tpu_torch/csrc/chol_inverse.cu,
+// finalize_fused.cu, chol_blocked.cuh and probes.cu) be compiled with g++
+// and run on the CPU, for correctness only.  It covers the subset they
+// use: one std::thread per CUDA thread of a 1-D block, the blocks of a
+// 1-D grid one after another, std::barrier for __syncthreads and
+// __syncwarp, __shfl_sync through a per-warp exchange array, float4,
+// cudaLaunchKernelEx (1-D, its attributes ignored), and
+// dynamic shared memory poisoned with 0xFF bytes (NaN as a float, -1 as
+// an int) before each block, so that a read of a slot no thread wrote
+// shows in the result.  A static __shared__ array becomes a
+// function-local static, which every thread of the (one running) block
+// shares.  emu.py rewrites the source's <<<>>> launches into emu_launch
+// calls and builds it.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -25,9 +29,10 @@
 #define __launch_bounds__(x)
 #define __restrict__
 #define __align__(n) __attribute__((aligned(n)))
-#define __shared__
+#define __shared__ static
 
 using std::fma;
+using std::fmaf;
 using std::max;
 using std::min;
 using std::sqrt;
@@ -35,10 +40,18 @@ inline float rsqrt(float x) { return 1.0f / std::sqrt(x); }
 inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
 
 struct dim3e { int x = 0, y = 0, z = 0; };
-inline thread_local dim3e threadIdx, blockIdx;
+inline thread_local dim3e threadIdx, blockIdx, blockDim, gridDim;
 
 struct float4 { float x, y, z, w; };
 struct double2 { double x, y; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
+inline float __int_as_float(int i) {
+  float f;
+  std::memcpy(&f, &i, sizeof f);
+  return f;
+}
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -75,6 +88,44 @@ inline T __shfl_sync(unsigned, T v, int src) {
 }
 
 template <typename K, typename... A>
+void emu_launch(K kernel, int grid, int threads, size_t smem, A... args);
+
+// cudaLaunchKernelEx with a 1-D grid; launch attributes change nothing
+// here (blocks run one after another)
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
+enum cudaLaunchAttributeID {
+  cudaLaunchAttributeProgrammaticStreamSerialization = 5
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct {
+    int programmaticStreamSerializationAllowed;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <typename... P, typename... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                               void (*kernel)(P...), A... args) {
+  if (cfg->gridDim.y != 1 || cfg->gridDim.z != 1 || cfg->blockDim.y != 1
+      || cfg->blockDim.z != 1)
+    return cudaErrorInvalidValue;
+  emu_launch(kernel, static_cast<int>(cfg->gridDim.x),
+             static_cast<int>(cfg->blockDim.x), cfg->dynamicSmemBytes,
+             static_cast<P>(args)...);
+  return cudaSuccess;
+}
+
+template <typename K, typename... A>
 void emu_launch(K kernel, int grid, int threads, size_t smem, A... args) {
   if (smem > sizeof(smem_raw)) throw 1;
   for (int b = 0; b < grid; ++b) {
@@ -90,6 +141,8 @@ void emu_launch(K kernel, int grid, int threads, size_t smem, A... args) {
       ts.emplace_back([=] {
         threadIdx.x = t;
         blockIdx.x = b;
+        blockDim.x = threads;
+        gridDim.x = grid;
         kernel(args...);
       });
     for (auto& t : ts) t.join();

@@ -2,13 +2,15 @@
 
 Compiles a kernel source of ``parsy_bench_tpu_torch/csrc`` (K1:
 ``chol_inverse.cu``, K2: ``finalize_fused.cu``, both on
-``chol_blocked.cuh``) with g++ against the stand-in ``cuda_runtime.h``
+``chol_blocked.cuh``; P1-P3: ``probes.cu``) with g++ against the
+stand-in ``cuda_runtime.h``
 beside this file (one std::thread per CUDA thread, real barriers and
 shuffles, shared memory poisoned with NaN) and calls its C symbols through
 ctypes.  It finds indexing and barrier faults in a kernel without a card;
 it says nothing about its speed.
 
-    python -m pytest tests/test_torch_k1_emu.py tests/test_torch_k2_emu.py
+    python -m pytest tests/test_torch_k1_emu.py tests/test_torch_k2_emu.py \
+        tests/test_torch_p3_emu.py
 
 builds each kernel into a temporary directory and holds it against the
 plain versions and the JAX package.
@@ -33,21 +35,26 @@ SOURCES = {
     "finalize_fused.cu": {
         "pbt_finalize_fused_f32": [_P] * 3 + [_I] * 5 + [_P],
         "pbt_finalize_fused_f64": [_P] * 3 + [_I] * 5 + [_P]},
+    "probes.cu": {"pbt_probe_copy_f32": [_P, _P, _I, _P],
+                  "pbt_probe_matmul_f32": [_P] * 3 + [_I] * 3 + [_P],
+                  "pbt_gather_sum_f32": [_P] * 3 + [_I] * 4 + [_P]},
 }
 
 
 def build(source, out_dir) -> ctypes.CDLL:
-    """Rewrite the two ``<<<grid, threads, smem, s>>>`` launches of
-    ``csrc/<source>`` into ``emu_launch`` calls, compile it with g++ into
-    ``out_dir`` and return the loaded library, its symbols typed."""
+    """Rewrite every ``<<<grid, threads, smem, s>>>`` launch of
+    ``csrc/<source>`` into an ``emu_launch`` call, compile it with g++
+    into ``out_dir`` and return the loaded library, its symbols typed."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     src = (CSRC / source).read_text()
-    src, n = re.subn(r"(\w+<T>)<<<([^,]+), ([^,]+), (\w+), s>>>\(",
+    launches = src.count("<<<")
+    src, n = re.subn(r"(\w+(?:<T>)?)<<<([^,]+), ([^,]+), (\w+), s>>>\(",
                      r"emu_launch(\1, \2, \3, \4, ", src)
-    if n != 2:
-        raise RuntimeError(f"expected 2 kernel launches in {source}, found "
-                           f"{n}")
+    if n == 0 or n != launches:
+        raise RuntimeError(f"{source}: {n} of its {launches} kernel "
+                           f"launches are in the form <<<grid, threads, "
+                           f"smem, s>>>")
     # the stand-in header defines the shared buffer itself
     src = src.replace("extern __shared__ __align__(16) unsigned char "
                       "smem_raw[];", "")
@@ -95,3 +102,43 @@ def finalize_fused(lib, blk, w, cnt, nchunk):
     if err != 0:
         raise RuntimeError(f"emulated K2 returned error {err}")
     return diff
+
+
+def probe_copy(lib, x):
+    """y = x from the emulated P1, for a float32 array whose pointer may
+    be offset from 16 bytes; y starts as 7.0."""
+    y = np.full_like(x, 7.0)
+    err = lib.pbt_probe_copy_f32(x.ctypes.data, y.ctypes.data, x.size, None)
+    if err != 0:
+        raise RuntimeError(f"emulated P1 returned error {err}")
+    return y
+
+
+def probe_matmul(lib, a, b):
+    """a @ b (float32) from the emulated P2."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    c = np.full((a.shape[0], b.shape[1]), 7.0, dtype=np.float32)
+    err = lib.pbt_probe_matmul_f32(a.ctypes.data, b.ctypes.data,
+                                   c.ctypes.data, a.shape[0], b.shape[1],
+                                   a.shape[1], None)
+    if err != 0:
+        raise RuntimeError(f"emulated P2 returned error {err}")
+    return c
+
+
+def gather_sum(lib, pool, idx, per):
+    """(G, w) group sums of the rows pool[idx[g*per + k]] from the
+    emulated P3; pool (rows, w) float32 16-byte aligned, idx int32; the
+    output starts as 7.0 so an unwritten entry shows."""
+    pool = np.ascontiguousarray(pool, dtype=np.float32)
+    idx = np.ascontiguousarray(idx, dtype=np.int32)
+    if pool.ctypes.data % 16:
+        raise ValueError("pool must start 16-byte aligned")
+    rows, w = pool.shape
+    out = np.full((idx.size // per, w), 7.0, dtype=np.float32)
+    err = lib.pbt_gather_sum_f32(pool.ctypes.data, idx.ctypes.data,
+                                 out.ctypes.data, rows, w, idx.size // per,
+                                 per, None)
+    if err != 0:
+        raise RuntimeError(f"emulated P3 returned error {err}")
+    return out

@@ -13,10 +13,10 @@ string turned to ``"cpu"`` and these stand-ins:
   later runs call it without counting (replays), so that the launch-count
   checks see what they see on the card;
 * ``torch.cuda``'s queries, memory statistics, events and sleep, the card
-  line (nvidia-smi), the kernel build and ``torch.profiler`` (whose CUDA
-  activity on a CPU-only torch takes minutes and prints errors) answer
-  with placeholders; the profiler stand-in counts the kernels each call
-  runs, replays included;
+  line (nvidia-smi), the kernel build, the probes' L2 flush and
+  ``torch.profiler`` (whose CUDA activity on a CPU-only torch takes
+  minutes and prints errors) answer with placeholders; the profiler
+  stand-in counts the kernels each call runs, replays included;
 * every device asked for resolves to the CPU;
 * the plan-shape checks print instead of raising, and the kernel shapes
   of phases 3 and 7 are cut to the small plan's;
@@ -74,7 +74,7 @@ def _stub_kernels():
                   dense.finalize_fused(blk, w, cnt))
     _counted("probe_copy_cuda", probes.copy_plain)
     _counted("probe_matmul_cuda", probes.matmul_plain)
-    _counted("probe_gather_cuda", probes.gather_plain)
+    _counted("gather_sum_cuda", probes.gather_sum_plain)
     supernodal.chol_inverse = k1
     supernodal.finalize_fused = k2
     build.build = lambda: "(kernels not built: CPU rehearsal)"
@@ -152,6 +152,7 @@ def _cuda_ms(fn, reps, *a, **kw):
 def _stub_probes():
     probes.cuda_ms = _cuda_ms
     probes.cuda_ms_cold = _cuda_ms
+    probes.l2_flush = lambda device, how="read": (lambda: None)
     probes.ROWS, probes.HBM_ROWS, probes.NIDX = 1 << 12, 1 << 13, 1 << 10
 
     def run(device="cuda"):
@@ -174,6 +175,15 @@ def _device_ops(torch, fn, kernel=(), top=0):
                 k_n=n, k_ms=1.0, by_name=[["(rehearsal)", 1, 1.0]][:top])
 
 
+def _profiled_ms(torch, fn, flush, names=(), reps=10, skip=(), expect=1):
+    fn()
+    before = EXECUTED["gather_sum_cuda"]
+    for _ in range(reps):
+        flush()
+        fn()
+    return 1.0, (EXECUTED["gather_sum_cuda"] - before) / reps, 1.0
+
+
 def main() -> int:
     _stub_kernels()
     _stub_cuda()
@@ -194,11 +204,12 @@ def main() -> int:
     for name in ("SIMPLICIAL_GRID", "CLI_RUNS", "K1_SHAPES", "K1_SMALL",
                  "K2_SHAPES", "DIST_GROUPS", "SHARDED_G", "DENSE_TOP_COLS",
                  "GPOOL_MB", "_multi_device_phase", "_last_slice_phase",
-                 "_card", "_device_ops"):
+                 "_card", "_device_ops", "_profiled_ms"):
         if name not in ns:
             raise AssertionError(f"chip_smoke.py no longer defines {name}")
     ns["_card"] = lambda: "CPU rehearsal, no card"
     ns["_device_ops"] = _device_ops
+    ns["_profiled_ms"] = _profiled_ms
     # the kernel shapes of phases 3 and 7, cut to the small plan's
     s = CholeskySolver(generate.laplace_3d(12),
                        SolverConfig(ordering="nd", dtype="float32",
