@@ -79,7 +79,8 @@ Phases, each of which raises on failure (nothing is caught):
    in turns, each with the b = L*1 gate, and the device operations of
    each counted with ``torch.profiler``;
 10. the probes (``parsy_bench_tpu_torch.probes.run``): P1 copy bit-equal,
-   P2 matmul within 1e-5*K*max|a|*max|b| and ones @ 2I exactly 2, P3
+   P2 matmul within 1e-5*K*max|a|*max|b| of a float64 product (and
+   2^-16 of sum |a b| entrywise) and ones @ 2I exactly 2, P3
    gather within 1e-5 of the largest |sum|, at a 32 MB pool (warm L2) and
    a 256 MB pool (L2 flushed before each call), each with the bytes and
    bound of its own indices; the yardsticks ``x.clone()`` (P1),
@@ -95,8 +96,19 @@ Phases, each of which raises on failure (nothing is caught):
    ``embedding_bag`` within 1e-5 of the largest |sum| of the executor's
    ``call[gi[t]].sum(dim=1)``, the three timed with the call buffer
    written before each call, and one pass over every ladder sum of a
-   factorize with each, against the pass's byte bound.  The executor is
-   not touched: phase 4 checked that its run launched P3 no time;
+   factorize with each, against the pass's byte bound.  P2 at 128^3
+   against a float64 product (the probe's bar 1e-5*K*max|a|*max|b| and
+   2^-16 of sum |a b| entrywise) and against ``torch.matmul`` in 12
+   interleaved pairs, with its kernel time from torch.profiler; then P2
+   at the main path's update products (``_update_products``, on phase
+   4's factor): for each of the 30 (c, Mc, K, Q) classes and both
+   products of ``update_block`` (A B_raw^T, Chat S^T) the step with the
+   most lanes, P2 and ``torch.bmm`` within the bar of a float64 product,
+   each timed with its operands written before each call (events and
+   torch.profiler) beside its bound and its 3xTF32 ceiling, and one pass
+   over the 2,276 products of a factorize with each, P2's launches in it
+   equal to the products.  The executor is not touched: phase 4 checked
+   that its run launched P3 and P2 no time;
 11. the scatter update mode at n = 110,592: a second ``CholeskySolver``
    with ``update_delta="scatter"`` (its own analyze); K1 counted as in
    phase 4; the captured ``factorize`` within 1e-6 of the pool scale of
@@ -169,8 +181,9 @@ Phases, each of which raises on failure (nothing is caught):
 Output: JSON lines of each phase's numbers, the card line, one JSON line
 ``{"kernels": [...]}`` (K1, K2, P1, P2, P3, each with the launches of its
 path's run, its times, bound and yardstick; P1 with its pairs against
-``x.clone()``, P3 with each run's bound, the flush study and the ladder
-sums; K1 and K2 also with their
+``x.clone()``, P2 with its pairs against ``torch.matmul``, its launches
+in the main path's run (0) and the update products, P3 with each run's
+bound, the flush study and the ladder sums; K1 and K2 also with their
 launches per replay from the capture and from the profiler; K1 also with
 its launches in each rank's factorize of phase 16, its checks at the
 ranks' batch shapes and its launches in phase 17's factorizes) and,
@@ -223,7 +236,9 @@ GPOOL_MB = 2048
 #: csrc/finalize_fused.cu)
 K1_NAMES = ("chol_inverse_warp_kernel", "chol_inverse_blocked_kernel")
 K2_NAMES = ("finalize_warp_kernel", "finalize_blocked_kernel")
-#: P3's kernel name as torch.profiler shows it (csrc/probes.cu)
+#: P2's and P3's kernel names as torch.profiler shows them
+#: (csrc/probes.cu; P2 has a small-tile and a 64-row kernel)
+P2_NAMES = ("matmul_kernel", "matmul_wg_kernel")
 P3_NAMES = ("gather_sum_kernel",)
 #: the name of the small operations that open each profiled window of
 #: phase 10 (``torch.exp_``), and of the operation that writes the ladder's
@@ -237,6 +252,9 @@ FILL_NAME = "MulFunctor"
 #: float32 FLOP/s on the CUDA cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+#: the ceiling of an f32-accurate product on the tensor cores in 3xTF32:
+#: three TF32 products each, a third of the dense TF32 rate (495 TFLOP/s)
+PEAK_3XTF32_FLOP_PER_S = 495e12 / 3
 
 
 def _bound(nbytes, flops):
@@ -658,8 +676,9 @@ def _profiled_ms(torch, fn, flush, names=(), reps=10, skip=(), expect=1):
     ``skip``).  On the H100 a profile lost the first two or three device
     operations of its window, so four small operations (``PRIMER_NAME``)
     open it; a profile that still shows fewer than expected is taken
-    again, up to three times, and the last one's times are taken per
-    call over the calls it shows (the share seen, the third value)."""
+    again, up to three times (and so is one that shows none of the
+    measured operations), and the last one's times are taken per call
+    over the calls it shows (the share seen, the third value)."""
     from torch.profiler import ProfilerActivity, profile
     primer = torch.zeros(1, device="cuda")
     fn()
@@ -683,7 +702,7 @@ def _profiled_ms(torch, fn, flush, names=(), reps=10, skip=(), expect=1):
         else:
             mine = [e for e in evs if not any(n in e.name for n in skip)]
             seen = len(evs) - len(mine)
-        if seen == expect * reps:
+        if seen == expect * reps and mine:
             break
     us = sum(getattr(e, "device_time_total", None)
              or getattr(e, "cuda_time_total", 0) for e in mine)
@@ -695,7 +714,9 @@ def _profiled_ms(torch, fn, flush, names=(), reps=10, skip=(), expect=1):
 
 
 def _gather_probes(torch, np, kernels, probes, precs, gen):
-    """Phase 10's probe shapes: P1 against ``x.clone()`` in 12 pairs; P3
+    """Phase 10's probe shapes: P1 against ``x.clone()`` in 12 pairs; P2
+    at 128^3 against a float64 product and against ``torch.matmul`` in 12
+    pairs, and its kernel time from torch.profiler; P3
     and ``embedding_bag`` at both probe pools, timed as the probe timed
     them and in 12 pairs; at the 256 MB pool P3 after a write flush and
     after a read flush (with and without the settling sleep), single
@@ -712,6 +733,21 @@ def _gather_probes(torch, np, kernels, probes, precs, gen):
               for _ in range(2))
     out["p_lib"] = [probes.cuda_ms(lambda: x.clone(), 50),
                     probes.cuda_ms(lambda: torch.matmul(pa, pb), 50)]
+
+    def p2():
+        return kernels.probe_matmul_cuda(pa, pb)
+    err, bar, rel = probes.matmul_error(p2(), pa, pb)
+    lib_err = probes.matmul_error(torch.matmul(pa, pb), pa, pb)[0]
+    if not (err <= bar and rel <= probes.MATMUL_REL_BAR and lib_err <= bar):
+        raise AssertionError(f"P2 at 128^3: |d| {err:.3e} (rel {rel:.3e}), "
+                             f"torch.matmul {lib_err:.3e}; bar {bar:.3e}")
+    out["p2"] = dict(
+        max_abs_err_vs_f64=err, bar=bar, max_rel_err=rel,
+        library_max_abs_err_vs_f64=lib_err,
+        profiled_ms=_profiled_ms(torch, p2, lambda: None, P2_NAMES)[0],
+        pairs_vs_library=_interleaved(
+            p2, lambda: torch.matmul(pa, pb),
+            lambda fn: probes.cuda_ms(fn, 50)))
     flush = probes.l2_flush("cuda")
     for r in [r for r in precs if r["variant"] == "gather"]:
         # the probe's pool and indices (the same seeds); embedding_bag
@@ -897,9 +933,179 @@ def _ladder_sums(torch, np, kernels, probes, plan, ex, gen):
         shapes=shapes)
 
 
-def _probe_phase(torch, np, kernels, plan, ex, gen, card):
+def _update_steps(plan, ex):
+    """The update bucket-steps of one factorize in the executor's order,
+    (segment, step, bucket) each, and for each (c, Mc, K, Q) class the
+    step with the most lanes (the first of them)."""
+    steps, pick = [], {}
+    for k, seg in enumerate(plan.segments):
+        for t in range(seg.nsteps):
+            for bi, (b, ut) in enumerate(zip(seg.upd, ex._segs[k].upd)):
+                steps.append((k, t, bi))
+                key = (b.c, b.Mc, b.K, b.Q)
+                lanes = int(ut.a8.shape[1])
+                if key not in pick or lanes > pick[key][0]:
+                    pick[key] = (lanes, (k, t, bi))
+    return steps, {key: s for key, (_, s) in pick.items()}
+
+
+def _update_operands(plan, ex, pools, s):
+    """The operands of bucket-step s = (segment, step, bucket), built as
+    ``ops/supernodal.update_block`` builds them from the packed pools: A
+    (lanes, Mc, K), B_raw (lanes, Q, K) and the one-hot column selector S
+    (lanes, c, Q).  The executor's products are A B_raw^T (Chat) and
+    Chat S^T."""
+    k, t, bi = s
+    b, ut = plan.segments[k].upd[bi], ex._segs[k].upd[bi]
+    pool8, ar = pools[b.kcls], ex._ar
+    A = pool8[ut.a8[t][:, None] + ar(b.Mc // 8)].reshape(-1, b.Mc, b.K)
+    Braw = pool8[ut.b8[t][:, None] + ar(b.Q // 8)].reshape(-1, b.Q, b.K)
+    S = (ar(b.c)[None, :, None] == ut.colq[t][:, None, :]).to(ex.dtype)
+    return A, Braw, S
+
+
+def _product_work(L, M, N, K):
+    """(bytes, FLOPs) of L f32 products (M, K) @ (N, K)^T: each operand
+    read once, the (L, M, N) result written once; 2 L M N K."""
+    return 4 * (L * M * K + L * N * K + L * M * N), 2 * L * M * N * K
+
+
+def _tc_bound_ms(nbytes, flops):
+    """The least ms at the 3xTF32 ceiling: the larger of the bytes over
+    the memory rate and the FLOPs over ``PEAK_3XTF32_FLOP_PER_S``."""
+    return max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_3XTF32_FLOP_PER_S) \
+        * 1e3
+
+
+def _update_products(torch, np, kernels, probes, plan, ex, pools):
+    """Phase 10: P2 at the main path's update products, not wired into the
+    executor.  The products of ``ops/supernodal.update_block``, A B_raw^T
+    and Chat S^T, on operands built from the factor's pools as the
+    executor builds them (``_update_operands``; the step's
+    ``update_block`` must equal ``bmm(bmm(A, B_raw^T), S^T)`` bit for
+    bit).  For every (c, Mc, K, Q) class and each of its two products the
+    step with the most lanes: P2 and ``torch.bmm`` within the bar of a
+    float64 product on the card (P2 also within ``MATMUL_REL_BAR``
+    entrywise), each timed with its operands written right before each
+    call, by CUDA events (median of 10) and by its device time in
+    torch.profiler, beside its bound.  Then every product of one
+    factorize in the executor's order, each step's A, B_raw and S written
+    before its two products (the second takes the first's result): the
+    device time of each method's pass from torch.profiler, the writes
+    left out, and P2's launches in one pass, which must equal the
+    products."""
+    from parsy_bench_tpu_torch.ops import supernodal
+    steps, pick = _update_steps(plan, ex)
+    shapes = []
+    for key, s in sorted(pick.items()):
+        k, t, bi = s
+        b, ut = plan.segments[k].upd[bi], ex._segs[k].upd[bi]
+        A, Braw, S = _update_operands(plan, ex, pools, s)
+        Chat = torch.bmm(A, Braw.transpose(1, 2))
+        C = supernodal.update_block(pools[b.kcls], ut.a8[t], ut.b8[t],
+                                    ut.colq[t], b, ex._ar, ex.dtype)
+        if not torch.equal(C, torch.bmm(Chat, S.transpose(1, 2))):
+            raise AssertionError(f"update class {key}: the operands are not "
+                                 f"update_block's")
+        for which, (x, y) in (("A B_raw^T", (A, Braw)),
+                              ("Chat S^T", (Chat, S))):
+            x, y = x.contiguous(), y.contiguous()
+            sx, sy = x.clone(), y.clone()
+
+            def fill(x=x, y=y, sx=sx, sy=sy):
+                torch.mul(sx, 1.0, out=x)
+                torch.mul(sy, 1.0, out=y)
+            methods = {
+                "kernel": functools.partial(kernels.probe_matmul_cuda, x, y,
+                                            True),
+                "library": functools.partial(
+                    lambda x, y: torch.bmm(x, y.transpose(1, 2)), x, y)}
+            nbytes, flops = _product_work(*x.shape[:2], y.shape[1],
+                                          x.shape[2])
+            rec = dict(c=key[0], Mc=key[1], K=key[2], Q=key[3],
+                       product=which, segment=k, step=t, bucket=bi,
+                       L=int(x.shape[0]), M=int(x.shape[1]),
+                       N=int(y.shape[1]), depth=int(x.shape[2]),
+                       bytes=nbytes, flops=flops)
+            err, bar, rel = probes.matmul_error(methods["kernel"](), x, y,
+                                                True)
+            lib_err, _, lib_rel = probes.matmul_error(methods["library"](),
+                                                      x, y, True)
+            if not (err <= bar and rel <= probes.MATMUL_REL_BAR
+                    and lib_err <= bar):
+                raise AssertionError(
+                    f"update product {which} at {key}: P2 |d| {err:.3e} "
+                    f"(rel {rel:.3e}), bmm {lib_err:.3e}; bar {bar:.3e}")
+            rec.update(bar=bar, kernel_max_abs_err=err, kernel_max_rel_err=rel,
+                       library_max_abs_err=lib_err,
+                       library_max_rel_err=lib_rel)
+            for name, call in methods.items():
+                rec[f"{name}_event_ms"] = probes.cuda_ms_cold(call, 10, fill)
+                (rec[f"{name}_ms"], rec[f"{name}_ops"],
+                 rec[f"{name}_share_seen"]) = _profiled_ms(
+                    torch, call, fill, skip=(FILL_NAME,), expect=2)
+            rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
+            rec["bound_3xtf32_ms"] = _tc_bound_ms(nbytes, flops)
+            shapes.append(rec)
+        del A, Braw, S, Chat, C, x, y, sx, sy
+
+    # the pass: every step's operands kept (untimed), written into the
+    # step's buffers before its products as the executor's gathers write
+    # them
+    srcs = [_update_operands(plan, ex, pools, s) for s in steps]
+    size = [max(src[i].numel() for src in srcs) for i in range(3)]
+    bufs = [torch.empty(n, device="cuda") for n in size]
+    views = [tuple(buf[:src.numel()].view(src.shape)
+                   for buf, src in zip(bufs, srcs_s)) for srcs_s in srcs]
+    work = [w for A, Braw, S in srcs for w in (
+        _product_work(*A.shape[:2], Braw.shape[1], A.shape[2]),
+        _product_work(*A.shape[:2], S.shape[1], S.shape[2]))]
+
+    def one_pass(fn):
+        for src, (A, Braw, S) in zip(srcs, views):
+            for buf, x in zip((A, Braw, S), src):
+                torch.mul(x, 1.0, out=buf)
+            fn(fn(A, Braw), S)
+        torch.cuda.synchronize()
+
+    methods = {
+        "kernel": lambda x, y: kernels.probe_matmul_cuda(x, y, True),
+        "library": lambda x, y: torch.bmm(x, y.transpose(1, 2))}
+    kernels.probe_matmul_cuda.launches = 0
+    one_pass(methods["kernel"])
+    launches = kernels.probe_matmul_cuda.launches
+    if launches != 2 * len(steps):
+        raise AssertionError(f"P2 launched {launches} times in a pass of "
+                             f"{2 * len(steps)} products")
+    prof = {name: _profiled_ms(
+        torch, functools.partial(one_pass, fn), lambda: None, reps=1,
+        skip=(FILL_NAME,), expect=3 * len(steps))
+        for name, fn in methods.items()}
+    if abs(prof["kernel"][1] - 2 * len(steps)) > 0.1 * len(steps):
+        raise AssertionError(f"P2's pass ran {prof['kernel'][1]} device "
+                             f"operations besides the operand writes for "
+                             f"{2 * len(steps)} products")
+    nbytes = sum(w[0] for w in work)
+    flops = sum(w[1] for w in work)
+    out = dict(
+        bucket_steps=len(steps), products=2 * len(steps),
+        classes=len(pick), kernel_launches=launches,
+        operand_mb=sum(x.numel() for src in srcs for x in src) * 4 / 1e6,
+        bytes=nbytes, flops=flops,
+        bound_ms=sum(_bound(*w)[0] for w in work),
+        bound_3xtf32_ms=sum(_tc_bound_ms(*w) for w in work),
+        **{f"{name}_ms": prof[name][0] for name in methods},
+        **{f"{name}_ops": prof[name][1] for name in methods},
+        **{f"{name}_share_seen": prof[name][2] for name in methods},
+        shapes=shapes)
+    del srcs, bufs, views
+    return out
+
+
+def _probe_phase(torch, np, kernels, plan, ex, pools, gen, card):
     """Phase 10 (the module docstring): the probes, then P3 at the main
-    path's ladder sums."""
+    path's ladder sums and P2 at its update products (on the factor's
+    ``pools``)."""
     from parsy_bench_tpu_torch import probes
     pk = (kernels.probe_copy_cuda, kernels.probe_matmul_cuda,
           kernels.gather_sum_cuda)
@@ -913,16 +1119,23 @@ def _probe_phase(torch, np, kernels, plan, ex, gen, card):
             r["bound_ms"], r["bound_by"] = _bound(r["bytes"], 0)
         print("probe", json.dumps(r))
     print("P1 vs x.clone()", json.dumps(extra["p1_vs_clone"]))
+    print("P2 at 128^3", json.dumps(extra["p2"]))
     print("P3 flush study, 256 MB pool", json.dumps(extra["flush_study"]))
     ladder = _ladder_sums(torch, np, kernels, probes, plan, ex, gen)
     for r in ladder["shapes"]:
         print("ladder shape", json.dumps(r))
     print("ladder pass", json.dumps(
         {k: v for k, v in ladder.items() if k != "shapes"}))
+    products = _update_products(torch, np, kernels, probes, plan, ex, pools)
+    for r in products["shapes"]:
+        print("update product", json.dumps(r))
+    print("update products pass", json.dumps(
+        {k: v for k, v in products.items() if k != "shapes"}))
     gathers = [r for r in precs if r["variant"] == "gather"]
     x = 8 * 128 * 4
     return dict(
         precs=precs, plaunch=plaunch, gathers=gathers, ladder=ladder,
+        products=products, p2=extra["p2"],
         p1_pairs=extra["p1_vs_clone"], flush_study=extra["flush_study"],
         p_lib=extra["p_lib"] + [gathers[0]["library_ms"]],
         # the copy's bytes; the product's bytes and FLOPs; the warm
@@ -950,12 +1163,13 @@ def _scatter_phase(torch, np, kernels, a, cfg, card):
     times = sorted(_sync_s(torch, solver.factorize)[0] for _ in range(5))
     launches = kernels.cholesky_inverse_cuda.launches
     k1_per_replay = prog.launches["cholesky_inverse_cuda"]
-    # P3 is measured at the ladder sums (phase 10), not wired in
+    # P3 and P2 are measured in phase 10, not wired in
     p3_main = kernels.gather_sum_cuda.launches
-    if p3_main != 0:
-        raise AssertionError(f"the main path's run launched P3 {p3_main} "
-                             f"times; the executor runs the plain ladder "
-                             f"sums")
+    p2_main = kernels.probe_matmul_cuda.launches
+    if p3_main != 0 or p2_main != 0:
+        raise AssertionError(f"the scatter mode's run launched P3 {p3_main} "
+                             f"and P2 {p2_main} times; the executor runs "
+                             f"torch.bmm and index_add_")
     if (launches, k1_per_replay) != (2 * expected, expected):
         raise AssertionError(f"scatter mode: K1 counted {launches} launches "
                              f"and {k1_per_replay} in the capture; the plan "
@@ -1672,12 +1886,14 @@ def main() -> int:
     times = [_sync_s(torch, solver.factorize)[0] for _ in range(5)]
     launches = kernels.cholesky_inverse_cuda.launches
     k1_per_replay = prog.launches["cholesky_inverse_cuda"]
-    # P3 is measured at the ladder sums (phase 10), not wired in
+    # P3 is measured at the ladder sums and P2 at the update products
+    # (phase 10), neither wired in
     p3_main = kernels.gather_sum_cuda.launches
-    if p3_main != 0:
+    p2_main = kernels.probe_matmul_cuda.launches
+    if p3_main != 0 or p2_main != 0:
         raise AssertionError(f"the main path's run launched P3 {p3_main} "
-                             f"times; the executor runs the plain ladder "
-                             f"sums")
+                             f"and P2 {p2_main} times; the executor runs "
+                             f"the plain ladder sums and torch.bmm")
     if (launches, k1_per_replay) != (2 * expected, expected):
         raise AssertionError(
             f"K1 counted {launches} launches in the main path's run and "
@@ -1916,8 +2132,10 @@ def main() -> int:
         card=card)
     print("solves", json.dumps(solves))
 
-    # ---- 10. the probes, and P3 at the main path's ladder sums --------
-    probe = _probe_phase(torch, np, kernels, plan, ex, gen, card)
+    # ---- 10. the probes, P3 at the main path's ladder sums and P2 at its
+    # update products -----------------------------------------------------
+    probe = _probe_phase(torch, np, kernels, plan, ex, solver.lx, gen,
+                         card)
 
     # ---- 11. the scatter update mode at n = 110,592 -------------------
     scatter = _scatter_phase(torch, np, kernels, a, cfg, card)
@@ -2051,8 +2269,15 @@ def main() -> int:
         probe_entry("probe_copy", "scripts/pallas_probe.py:19",
                     [probe["precs"][0]], 0,
                     pairs_vs_library=probe["p1_pairs"]),
+        # the probe's 128^3 product; the update products of one
+        # factorize (the kernel is not wired into the executor: 0 launches
+        # in the main path's run)
         probe_entry("probe_matmul", "scripts/pallas_probe.py:34",
-                    [probe["precs"][1]], 1),
+                    [probe["precs"][1]], 1, main_path_launches=p2_main,
+                    profiled_ms=probe["p2"]["profiled_ms"],
+                    max_abs_err_vs_f64=probe["p2"]["max_abs_err_vs_f64"],
+                    pairs_vs_library=probe["p2"]["pairs_vs_library"],
+                    update_products=probe["products"]),
         # each run with its own bytes and bound; the ladder sums of one
         # factorize (the kernel is not wired into the executor: 0 launches
         # in the main path's run)

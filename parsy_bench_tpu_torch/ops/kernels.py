@@ -39,7 +39,7 @@ _SIGNATURES = {
     "pbt_finalize_fused_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pbt_finalize_fused_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pbt_probe_copy_f32": [_P, _P, _I, _P],
-    "pbt_probe_matmul_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "pbt_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pbt_gather_sum_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -205,23 +205,41 @@ def probe_copy_cuda(x: torch.Tensor):
 probe_copy_cuda.launches = 0
 
 
-def probe_matmul_cuda(a: torch.Tensor, b: torch.Tensor):
-    """Probe P2: a (M, K) @ b (K, N) in f32 on the CUDA cores, by a kernel
-    of ``csrc/probes.cu`` (replaces ``scripts/pallas_probe.py``
-    ``_matmul_kernel_result``)."""
+def probe_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
+                      trans_b: bool = False):
+    """Probe P2: C = a @ op(b) in f32 on the tensor cores (3xTF32, f32
+    accuracy), by the kernels of ``csrc/probes.cu`` (replaces
+    ``scripts/pallas_probe.py`` ``_matmul_kernel_result``): 16-row strips
+    on ``mma.sync``, or 64-row tiles on ``wgmma`` where M >= 64, N >= 96,
+    64 <= K <= 136 and b is (N, K).  The probe's a (M, K) @ b (K, N), or
+    batched: a (L, M, K) @ b (L, K, N) -> (L, M, N); with ``trans_b`` b
+    is (N, K) or (L, N, K) and the product is a @ b^T, the form of the
+    update products of ``ops/supernodal.update_block`` (A B_raw^T, Chat
+    S^T).  Shapes and the int32 offsets are checked before the device,
+    so a mis-shaped call is refused wherever its tensors lie."""
+    kdim = -1 if trans_b else -2
+    if (a.dim() not in (2, 3) or b.dim() != a.dim()
+            or a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[kdim]):
+        form = "(N, K)" if trans_b else "(K, N)"
+        raise ValueError(f"expected (M, K) @ {form}, both 2-D or both with "
+                         f"one batch dimension of the same length, got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    L = a.shape[0] if a.dim() == 3 else 1
+    M, K = a.shape[-2:]
+    N = b.shape[-2] if trans_b else b.shape[-1]
+    if max(L * M * K, L * K * N, L * M * N) >= 2**31:
+        raise ValueError("operands too large for int32 offsets")
     _check_cuda("probe_matmul_cuda", a, b)
     for t in (a, b):
         _check_dtype("probe_matmul_cuda", t, (torch.float32,))
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"expected (M, K) @ (K, N), got {tuple(a.shape)} "
-                         f"@ {tuple(b.shape)}")
-    M, K = a.shape
-    N = b.shape[1]
-    if max(M * K, K * N, M * N) >= 2**31:
-        raise ValueError("matrices too large for int32 offsets")
-    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    _launch("probe_matmul", _load().pbt_probe_matmul_f32, a.device,
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K)
+    out = torch.empty(a.shape[:-2] + (M, N), dtype=a.dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    if K == 0:
+        return out.zero_()
+    _launch(f"matmul at (L, M, N, K) = ({L}, {M}, {N}, {K})",
+            _load().pbt_matmul_f32, a.device, a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), L, M, N, K, int(bool(trans_b)))
     probe_matmul_cuda.launches += 1
     return out
 

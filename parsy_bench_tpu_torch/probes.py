@@ -39,8 +39,35 @@ def copy_plain(x):
     return x.clone()
 
 
-def matmul_plain(a, b):
-    return torch.matmul(a, b)
+def matmul_plain(a, b, trans_b=False):
+    """a @ b, or a @ b^T with ``trans_b``: 2-D, or batched over a leading
+    dimension (``torch.matmul``, which is ``bmm`` there)."""
+    return torch.matmul(a, b.transpose(-2, -1) if trans_b else b)
+
+
+#: the entrywise bar of ``matmul_error``: 2^-16 of sum_k |a_ik b_kj|.  A
+#: single TF32 pass (operands cut to 11 significant bits, about 2^-11 per
+#: product) exceeds it; 3xTF32 (about 2^-21 per product) and an f32
+#: product (2^-24 per product, plus the f32 sum) stay well under it
+MATMUL_REL_BAR = 2.0 ** -16
+
+
+def matmul_error(out, a, b, trans_b=False):
+    """How far a product ``out`` of a @ op(b) lies from the float64
+    product: (max |out - ref|, the probe's bar 1e-5 K max|a| max|b|, the
+    largest |out - ref| / sum_k |a_ik b_kj| over the entries).  A caller
+    holds the second against the first and the third against
+    ``MATMUL_REL_BAR``; an entry whose |a| @ |b| is 0 must be exactly 0."""
+    a64, b64 = a.double(), b.double()
+    ref = matmul_plain(a64, b64, trans_b)
+    mag = matmul_plain(a64.abs(), b64.abs(), trans_b)
+    d = (out.double() - ref).abs()
+    K = a.shape[-1]
+    amax = float(a.abs().max()) if a.numel() else 0.0
+    bmax = float(b.abs().max()) if b.numel() else 0.0
+    rel = d / mag.clamp_min(torch.finfo(torch.float64).tiny)
+    return (float(d.max()) if d.numel() else 0.0, 1e-5 * K * amax * bmax,
+            float(rel.max()) if rel.numel() else 0.0)
 
 
 def gather_sum_plain(pool, idx, per):
@@ -73,9 +100,9 @@ def probe_copy(x):
     return _route(x, kernels.probe_copy_cuda, copy_plain, x)
 
 
-def probe_matmul(a, b):
+def probe_matmul(a, b, trans_b=False):
     """P2: the kernel for CUDA tensors, ``matmul_plain`` for CPU ones."""
-    return _route(a, kernels.probe_matmul_cuda, matmul_plain, a, b)
+    return _route(a, kernels.probe_matmul_cuda, matmul_plain, a, b, trans_b)
 
 
 def probe_gather(pool8, idx, per=PER):
@@ -195,11 +222,14 @@ def _matmul_record(dev):
                         device=dev)
     b = torch.as_tensor(rng.standard_normal((n, n)).astype(np.float32),
                         device=dev)
-    err = float((probe_matmul(a, b) - matmul_plain(a, b)).abs().max())
-    bar = 1e-5 * n * float(a.abs().max()) * float(b.abs().max())
-    if not err <= bar:
-        raise AssertionError(f"P2 matmul: |d| {err:.3e} > {bar:.3e}")
+    err, bar, rel = matmul_error(probe_matmul(a, b), a, b)
+    if not (err <= bar and rel <= MATMUL_REL_BAR):
+        raise AssertionError(f"P2 matmul: |d| {err:.3e} (bar {bar:.3e}), "
+                             f"{rel:.3e} of sum |a b| (bar "
+                             f"{MATMUL_REL_BAR:.3e}) against float64")
+    plain_err = matmul_error(matmul_plain(a, b), a, b)[0]
     return dict(variant="matmul", shape=[n, n, n], max_abs_err=err, bar=bar,
+                max_rel_err=rel, plain_max_abs_err=plain_err,
                 ms=cuda_ms(lambda: probe_matmul(a, b), 50),
                 plain_ms=cuda_ms(lambda: matmul_plain(a, b), 50))
 

@@ -154,13 +154,3 @@ def test_copy_is_bit_equal(emu, n, offset):
     y = mod.probe_copy(lib, x)
     assert np.array_equal(y.view(np.int32), x.view(np.int32))
 
-
-def test_matmul(emu):
-    """P2 on the 1-D grid of 16 x 16 tiles at ragged edges."""
-    mod, lib = emu
-    rng = np.random.default_rng(3)
-    a = rng.standard_normal((37, 21)).astype(np.float32)
-    b = rng.standard_normal((21, 45)).astype(np.float32)
-    ref = a.astype(np.float64) @ b
-    bar = 1e-5 * 21 * np.abs(a).max() * np.abs(b).max()
-    assert np.abs(mod.probe_matmul(lib, a, b) - ref).max() <= bar

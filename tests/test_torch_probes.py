@@ -3,14 +3,19 @@ numpy restatements of the TPU probes' arithmetic (scripts/pallas_probe.py,
 scripts/pallas_gather_probe.py), and the probe entry point without a card.
 
 The JAX probe kernels use TPU memory spaces and run only on a TPU; the
+product's kernel body, ``jnp.dot(a, b, preferred_element_type=float32)``
+(scripts/pallas_probe.py), runs here on the CPU at HIGHEST precision. The
 CUDA kernels run only on the card, where ``chip_smoke.py`` and
 ``python -m parsy_bench_tpu_torch.probes`` hold them against these plain
 versions.
 """
+import functools
 import os
 import subprocess
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -44,6 +49,72 @@ def test_matmul_plain():
     ref = a.astype(np.float64) @ b.astype(np.float64)
     assert np.max(np.abs(out.numpy() - ref)) \
         <= 1e-5 * 128 * np.abs(a).max() * np.abs(b).max()
+
+
+def _tpu_body(a, b):
+    """The TPU probe kernel's body, ``jnp.dot`` with f32 accumulation, at
+    HIGHEST precision (no bf16 passes), batched by ``vmap`` over a
+    leading dimension."""
+    dot = functools.partial(jnp.dot, precision=jax.lax.Precision.HIGHEST,
+                            preferred_element_type=jnp.float32)
+    if a.ndim == 3:
+        dot = jax.vmap(dot)
+    return np.asarray(dot(a, b))
+
+
+@pytest.mark.parametrize("L,M,N,K,trans_b",
+                         [(0, 37, 45, 21, False), (5, 20, 24, 36, False),
+                          (5, 20, 24, 36, True), (3, 16, 16, 32, True),
+                          (2, 64, 48, 128, True), (1, 256, 136, 128, True),
+                          (2, 64, 128, 136, True)],
+                         ids=["2d-ragged", "batched", "batched-bt",
+                              "update-16-32-16", "update-64-128-48",
+                              "update-256-128-136", "K136"])
+def test_matmul_plain_forms(L, M, N, K, trans_b):
+    """``matmul_plain`` (and ``probe_matmul`` on CPU tensors) in 2-D and
+    batched forms, with B as (K, N) or (N, K), against a float64 numpy
+    product and the TPU kernel's body on the same seeded inputs: both
+    within 1e-5 K max|a| max|b| (the probe's bar) of float64, and within
+    2^-16 of sum_k |a_ik b_kj| entrywise (``probes.MATMUL_REL_BAR``)."""
+    rng = np.random.default_rng(L * 1000 + M + N + K)
+    lead = (L,) if L else ()
+    a = rng.standard_normal(lead + (M, K)).astype(np.float32)
+    b = rng.standard_normal(lead + ((N, K) if trans_b else (K, N))) \
+        .astype(np.float32)
+    bk = np.swapaxes(b, -1, -2) if trans_b else b
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    out = probes.matmul_plain(ta, tb, trans_b)
+    assert torch.equal(probes.probe_matmul(ta, tb, trans_b), out)
+    ref = np.matmul(a.astype(np.float64), bk.astype(np.float64))
+    jax_out = _tpu_body(a, np.ascontiguousarray(bk))
+    bar = 1e-5 * K * np.abs(a).max() * np.abs(b).max()
+    rel_den = np.matmul(np.abs(a).astype(np.float64),
+                        np.abs(bk).astype(np.float64))
+    for got in (out.numpy(), jax_out):
+        assert got.shape == ref.shape and got.dtype == np.float32
+        assert np.abs(got - ref).max() <= bar
+        assert (np.abs(got - ref) / rel_den).max() <= probes.MATMUL_REL_BAR
+    assert np.abs(out.numpy() - jax_out).max() <= bar
+    err, pbar, rel = probes.matmul_error(out, ta, tb, trans_b)
+    assert err <= pbar and rel <= probes.MATMUL_REL_BAR
+    assert np.isclose(pbar, bar)
+
+
+def test_matmul_error_refuses_a_single_tf32_pass():
+    """Operands cut to TF32 (the 13 low bits rounded away) give a product
+    that ``matmul_error``'s entrywise bar refuses; the f32 product passes."""
+    rng = np.random.default_rng(4)
+    a = torch.as_tensor(rng.standard_normal((64, 128)).astype(np.float32))
+    b = torch.as_tensor(rng.standard_normal((48, 128)).astype(np.float32))
+
+    def tf32(x):
+        bits = x.view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    rel_f32 = probes.matmul_error(probes.matmul_plain(a, b, True), a, b,
+                                  True)[2]
+    rel_tf32 = probes.matmul_error(
+        probes.matmul_plain(tf32(a), tf32(b), True), a, b, True)[2]
+    assert rel_f32 <= probes.MATMUL_REL_BAR < rel_tf32
 
 
 def test_gather_indices_are_the_probes():
@@ -93,6 +164,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         kernels.probe_copy_cuda(x)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.probe_matmul_cuda(x, x.T)
+    x3 = torch.zeros((2, 8, 128))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.probe_matmul_cuda(x3, x3.transpose(1, 2).contiguous())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.probe_matmul_cuda(x3, x3, trans_b=True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.probe_gather_cuda(x, torch.zeros(4, dtype=torch.int32), 4)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -100,6 +176,39 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert counts == [f.launches for f in (kernels.probe_copy_cuda,
                                            kernels.probe_matmul_cuda,
                                            kernels.gather_sum_cuda)]
+
+
+@pytest.mark.parametrize("a,b,trans_b", [
+    ((8, 16), (17, 4), False),            # K differs
+    ((8, 16), (4, 17), True),             # K differs, B as (N, K)
+    ((2, 8, 16), (16, 4), False),         # batched A, 2-D B
+    ((2, 8, 16), (3, 16, 4), False),      # batch lengths differ
+    ((2, 8, 16), (2, 4, 16), False),      # (N, K) B without trans_b
+    ((2, 2, 8, 16), (2, 2, 16, 4), False),  # two batch dimensions
+    ((16,), (16, 4), False)],             # 1-D A
+    ids=["K", "K-bt", "dims", "L", "bt-missing", "4d", "1d"])
+def test_matmul_wrapper_refuses_shapes(a, b, trans_b):
+    """Mis-shaped operands are refused before any device or launch, and
+    the count does not move."""
+    n = kernels.probe_matmul_cuda.launches
+    with pytest.raises(ValueError, match="expected"):
+        kernels.probe_matmul_cuda(torch.zeros(a), torch.zeros(b), trans_b)
+    assert kernels.probe_matmul_cuda.launches == n
+
+
+@pytest.mark.parametrize("L,M,N,K", [(1, 2**16, 8, 2**15),
+                                     (2**16, 2**8, 8, 2**7),
+                                     (2**12, 8, 2**10, 2**9)],
+                         ids=["MK", "MN", "NK"])
+def test_matmul_wrapper_refuses_int32_overflow(L, M, N, K):
+    """L M K, L N K or L M N at 2^31 or more is refused (meta tensors:
+    nothing is allocated); the count does not move."""
+    n = kernels.probe_matmul_cuda.launches
+    a = torch.empty((L, M, K), device="meta")
+    b = torch.empty((L, N, K), device="meta")
+    with pytest.raises(ValueError, match="int32 offsets"):
+        kernels.probe_matmul_cuda(a, b, trans_b=True)
+    assert kernels.probe_matmul_cuda.launches == n
 
 
 @pytest.fixture(scope="module")

@@ -3,14 +3,14 @@
 Compiles a kernel source of ``parsy_bench_tpu_torch/csrc`` (K1:
 ``chol_inverse.cu``, K2: ``finalize_fused.cu``, both on
 ``chol_blocked.cuh``; P1-P3: ``probes.cu``) with g++ against the
-stand-in ``cuda_runtime.h``
-beside this file (one std::thread per CUDA thread, real barriers and
-shuffles, shared memory poisoned with NaN) and calls its C symbols through
-ctypes.  It finds indexing and barrier faults in a kernel without a card;
-it says nothing about its speed.
+stand-in ``cuda_runtime.h`` beside this file (one std::thread per CUDA
+thread, real barriers and shuffles, shared memory poisoned with NaN,
+P2's tensor-core instructions from the PTX fragment tables) and calls
+its C symbols through ctypes.  It finds indexing and barrier faults in a
+kernel without a card; it says nothing about its speed.
 
     python -m pytest tests/test_torch_k1_emu.py tests/test_torch_k2_emu.py \
-        tests/test_torch_p3_emu.py
+        tests/test_torch_p2_emu.py tests/test_torch_p3_emu.py
 
 builds each kernel into a temporary directory and holds it against the
 plain versions and the JAX package.
@@ -36,7 +36,7 @@ SOURCES = {
         "pbt_finalize_fused_f32": [_P] * 3 + [_I] * 5 + [_P],
         "pbt_finalize_fused_f64": [_P] * 3 + [_I] * 5 + [_P]},
     "probes.cu": {"pbt_probe_copy_f32": [_P, _P, _I, _P],
-                  "pbt_probe_matmul_f32": [_P] * 3 + [_I] * 3 + [_P],
+                  "pbt_matmul_f32": [_P] * 3 + [_I] * 5 + [_P],
                   "pbt_gather_sum_f32": [_P] * 3 + [_I] * 4 + [_P]},
 }
 
@@ -114,16 +114,24 @@ def probe_copy(lib, x):
     return y
 
 
-def probe_matmul(lib, a, b):
-    """a @ b (float32) from the emulated P2."""
-    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
-    c = np.full((a.shape[0], b.shape[1]), 7.0, dtype=np.float32)
-    err = lib.pbt_probe_matmul_f32(a.ctypes.data, b.ctypes.data,
-                                   c.ctypes.data, a.shape[0], b.shape[1],
-                                   a.shape[1], None)
+def matmul(lib, a, b, trans_b=False):
+    """C[l] = a[l] @ b[l] (b[l]^T with ``trans_b``) from the emulated P2:
+    a (L, M, K) or (M, K), b (L, K, N) or (L, N, K) with ``trans_b`` (2-D
+    with a 2-D a), float32; C starts as 7.0 so an unwritten entry
+    shows."""
+    a = np.ascontiguousarray(a, dtype=np.float32)
+    b = np.ascontiguousarray(b, dtype=np.float32)
+    flat = a.ndim == 2
+    if flat:
+        a, b = a[None], b[None]
+    L, M, K = a.shape
+    N = b.shape[1] if trans_b else b.shape[2]
+    c = np.full((L, M, N), 7.0, dtype=np.float32)
+    err = lib.pbt_matmul_f32(a.ctypes.data, b.ctypes.data, c.ctypes.data,
+                             L, M, N, K, int(trans_b), None)
     if err != 0:
         raise RuntimeError(f"emulated P2 returned error {err}")
-    return c
+    return c[0] if flat else c
 
 
 def gather_sum(lib, pool, idx, per):
