@@ -177,6 +177,14 @@ Phases, each of which raises on failure (nothing is caught):
    constants, R^2, each segment's relative error, ``factorize_cost``
    under the committed ``ChipModel`` and under the fit against phase 4's
    median, and the fit over the committed constants); peak memory.
+18. the bench (``python -m parsy_bench_tpu_torch.bench``, the port's
+   ``bench.py``) as a subprocess on the card (``BENCH_CMD``, at most
+   900 s: its factor-residual gate is a host-side scipy L L^T at
+   nnz(L) = 29.3M): exit 0, a last line that parses, exactly the bench's
+   keys, phase 4's n, group 16, the factor residual and max|1 - x| <
+   1e-3 and this card's name and power limit; its line, the process's
+   seconds and phase 4's factorize median beside it.  Gated on
+   correctness only, never on time.
 
 Output: JSON lines of each phase's numbers, the card line, one JSON line
 ``{"kernels": [...]}`` (K1, K2, P1, P2, P3, each with the launches of its
@@ -232,6 +240,8 @@ SHARDED_G = 4
 #: in MB (the plan's default ``gpool_mb``)
 DENSE_TOP_COLS = 4096
 GPOOL_MB = 2048
+#: phase 18: the bench's module as a subprocess (``python BENCH_CMD``)
+BENCH_CMD = ("-m", "parsy_bench_tpu_torch.bench")
 #: the kernels' names as torch.profiler shows them (csrc/chol_inverse.cu,
 #: csrc/finalize_fused.cu)
 K1_NAMES = ("chol_inverse_warp_kernel", "chol_inverse_blocked_kernel")
@@ -1557,6 +1567,38 @@ def _cli_phase(np, card):
     return dict(runs=out, card=card)
 
 
+def _bench_phase(n, med, card):
+    """Phase 18: the bench's line from a subprocess on the card, held to
+    its keys, phase 4's n, group 16, both gates and this card."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, *BENCH_CMD], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"the bench exited {run.returncode}: "
+                             f"{run.stderr[-2000:]}")
+    # imported after the run: the package's import builds the native
+    # library, which a cold run (tools/bench_cold_warm.py) must build itself
+    from parsy_bench_tpu_torch import bench
+    line = json.loads(run.stdout.strip().splitlines()[-1])
+    keys = bench.BENCH_KEYS + bench.EXTRA_KEYS
+    if sorted(line) != sorted(keys):
+        raise AssertionError(f"the bench's keys {sorted(line)} are not "
+                             f"{sorted(keys)}")
+    if not (line["n"] == n and line["group"] == 16
+            and line["factor_residual"] < 1e-3
+            and line["trisolve_residual"] < 1e-3
+            and line["device"] == card):
+        raise AssertionError(f"the bench's line does not hold n = {n}, "
+                             f"group 16, both residuals < 1e-3 and the "
+                             f"card {card!r}: {line}")
+    return dict(line=line, process_s=wall, phase4_factorize_median_s=med,
+                card=card)
+
+
 def _variant_solve(torch, np, name, ex, lx, b_l, x_ref, card):
     """Phase 17's record of one fast forward solve variant: ``solve_prep``
     (capture seconds and nodes, its program's replay time, one call on new
@@ -2204,7 +2246,10 @@ def main() -> int:
         phase_s=last["phase_s"], peak_allocated_gb=last["peak_allocated_gb"],
         reserved_gb=last["reserved_gb"], card=card)))
 
-    # ---- 18. result ----------------------------------------------------
+    # ---- 18. the bench on the card --------------------------------------
+    print("phase 18 bench", json.dumps(_bench_phase(int(a.n), med, card)))
+
+    # ---- 19. result ----------------------------------------------------
     print(card)
     k2_path = [r for r in k2 if r["shape"][2] <= 64]
     rank_k1 = [r["k1_checks"] for r in multi["runs"] if "k1_checks" in r]

@@ -24,6 +24,9 @@ string turned to ``"cpu"`` and these stand-ins:
   takes at most 1,024 columns (a partial top there);
 * the simplicial phase runs at laplace_3d(5) and the CLI (phase 15,
   real subprocesses, on the CPU) on small generated matrices;
+* the bench (phase 18, a real subprocess) runs ``bench.run`` on the CPU
+  at the main path's small matrix, its device key set to the card line's
+  stand-in;
 * the multi-device phase (16) runs its rank processes for real, gloo on
   the CPU, on the small plans; each rank installs the kernel stand-ins
   above before it runs (``_rank_with_stubs``), so that its K1 counts are
@@ -208,11 +211,13 @@ def main() -> int:
     exec(compile(src, path, "exec"), ns)
     for name in ("SIMPLICIAL_GRID", "CLI_RUNS", "K1_SHAPES", "K1_SMALL",
                  "K2_SHAPES", "DIST_GROUPS", "SHARDED_G", "DENSE_TOP_COLS",
-                 "GPOOL_MB", "_multi_device_phase", "_last_slice_phase",
+                 "GPOOL_MB", "BENCH_CMD", "_multi_device_phase",
+                 "_last_slice_phase",
                  "_card", "_device_ops", "_profiled_ms"):
         if name not in ns:
             raise AssertionError(f"chip_smoke.py no longer defines {name}")
-    ns["_card"] = lambda: "CPU rehearsal, no card"
+    card = "CPU rehearsal, no card"
+    ns["_card"] = lambda: card
     ns["_device_ops"] = _device_ops
     ns["_profiled_ms"] = _profiled_ms
     # the kernel shapes of phases 3 and 7, cut to the small plan's
@@ -237,6 +242,10 @@ def main() -> int:
                       ("trisolve", "gen:laplace3d:5"),
                       ("trisolve", "gen:laplace3d:8", "--lower", "--tier",
                        "simplicial", "--schedule", "coarsened"))
+    # the bench on the CPU, at the main path's small matrix
+    ns["BENCH_CMD"] = ("-c", "import json; from parsy_bench_tpu_torch "
+                       "import bench; r = bench.run(grid=12, device='cpu'); "
+                       f"r['device'] = {card!r}; print(json.dumps(r))")
     return ns["main"]()
 
 
