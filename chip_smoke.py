@@ -184,7 +184,22 @@ Phases, each of which raises on failure (nothing is caught):
    keys, phase 4's n, group 16, the factor residual and max|1 - x| <
    1e-3 and this card's name and power limit; its line, the process's
    seconds and phase 4's factorize median beside it.  Gated on
-   correctness only, never on time.
+   correctness only, never on time;
+19. the per-layer attribution scripts (``parsy_bench_tpu_torch/scripts/``)
+   on phase 4's solver, each on an executor of its own: ``floor_r5`` over
+   all segments in its five modes (``ATTR_REPS`` runs per sample), its
+   ``layers_ms`` (device ms per scope of one profiled
+   ``_factorize_eager``, whose step runs its pieces in the executor's
+   scopes) beside phase 4's replayed busy ms; ``fin_ablate`` at segment 0;
+   ``solve_floor`` at the prefixes ``SOLVE_KS``; whether the pools stay
+   finite under ``profile_segments``' reps on their own output.  Gated on
+   the ``full`` pools against ``_factorize_eager``'s (bit for bit, else
+   within 1e-6 of the pool scale, flagged), the device time no scope
+   covers (|other| at most 2 % of the pass's busy, and no scope opened
+   inside another, which would count a kernel twice), K1's launches per
+   mode (the captures and the profiler against the plan), the full
+   solve's max|1 - x| < 1e-3, and every timed segment's ``full`` and
+   restore above 0.
 
 Output: JSON lines of each phase's numbers, the card line, one JSON line
 ``{"kernels": [...]}`` (K1, K2, P1, P2, P3, each with the launches of its
@@ -194,8 +209,8 @@ in the main path's run (0) and the update products, P3 with each run's
 bound, the flush study and the ladder sums; K1 and K2 also with their
 launches per replay from the capture and from the profiler; K1 also with
 its launches in each rank's factorize of phase 16, its checks at the
-ranks' batch shapes and its launches in phase 17's factorizes) and,
-last,
+ranks' batch shapes, its launches in phase 17's factorizes and, per
+script and mode, in phase 19's programs) and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
 """
@@ -242,6 +257,10 @@ DENSE_TOP_COLS = 4096
 GPOOL_MB = 2048
 #: phase 18: the bench's module as a subprocess (``python BENCH_CMD``)
 BENCH_CMD = ("-m", "parsy_bench_tpu_torch.bench")
+#: phase 19: floor_r5's runs per timed sample (its default, and JAX's,
+#: is 20; fin_ablate keeps its 10) and solve_floor's segment prefixes
+ATTR_REPS = 20
+SOLVE_KS = (8, 16, 24, 34)
 #: the kernels' names as torch.profiler shows them (csrc/chol_inverse.cu,
 #: csrc/finalize_fused.cu)
 K1_NAMES = ("chol_inverse_warp_kernel", "chol_inverse_blocked_kernel")
@@ -250,11 +269,8 @@ K2_NAMES = ("finalize_warp_kernel", "finalize_blocked_kernel")
 #: (csrc/probes.cu; P2 has a small-tile and a 64-row kernel)
 P2_NAMES = ("matmul_kernel", "matmul_wg_kernel")
 P3_NAMES = ("gather_sum_kernel",)
-#: the name of the small operations that open each profiled window of
-#: phase 10 (``torch.exp_``), and of the operation that writes the ladder's
-#: call buffers (an elementwise ``torch.mul``); no measured call launches
-#: either
-PRIMER_NAME = "exp_kernel"
+#: the name of the operation that writes the ladder's call buffers (an
+#: elementwise ``torch.mul``); no measured call launches it
 FILL_NAME = "MulFunctor"
 
 
@@ -443,51 +459,42 @@ def _check_k2(torch, dense, kernels, P, H, c, gen, w=None, cnt=None,
 
 
 def _device_ops(torch, fn, kernel=(), top=0):
-    """One call under torch.profiler, after one unprofiled call: its
-    device operations (``ops``), their summed device ms (``busy_ms``), the
-    ms from the first one's start to the last one's end (``span_ms``), the
-    host ms around the synchronized call (``wall_ms``, profiler overhead
-    included) and the idle share of the span and of the wall; with
-    ``kernel`` (names), also the launches (``k_n``) and device ms
-    (``k_ms``) of the operations whose name holds one of those strings;
-    with ``top``, the ``top`` operation names of the most device time
-    (``by_name``: name, launches, ms).  Raises where the profile holds no
-    device time, or none for ``kernel``."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def us(es):
-        return sum(getattr(e, "device_time_total", None)
-                   or getattr(e, "cuda_time_total", 0) for e in es)
-    if not us(evs) > 0:
+    """One call under torch.profiler, after one unprofiled call
+    (``attribution.profile``: its primer operations open the window, and a
+    profile that lost them is taken again): its device operations
+    (``ops``), their summed device ms (``busy_ms``), the ms from the first
+    one's start to the last one's end (``span_ms``), the host ms around
+    the synchronized call (``wall_ms``, profiler overhead included) and
+    the idle share of the span and of the wall; with ``kernel`` (names),
+    also the launches (``k_n``) and device ms (``k_ms``) of the operations
+    whose name holds one of those strings; with ``top``, the ``top``
+    operation names of the most device time (``by_name``: name, launches,
+    ms).  Raises where the profile holds no device time, or none for
+    ``kernel``."""
+    from parsy_bench_tpu_torch.scripts import attribution
+    dev = torch.device("cuda")
+    evs, wall_ms, _ = attribution.profile(fn, dev)
+    work = attribution._work(evs, dev)
+    busy = sum(ms for _, ms in work)
+    if not busy > 0:
         raise AssertionError("torch.profiler recorded no device time")
-    busy = us(evs) / 1e3
-    span = (max(e.time_range.end for e in evs)
-            - min(e.time_range.start for e in evs)) / 1e3
-    out = dict(ops=len(evs), busy_ms=busy, span_ms=span, wall_ms=wall_ms,
+    span = (max(e.time_range.end for e, _ in work)
+            - min(e.time_range.start for e, _ in work)) / 1e3
+    out = dict(ops=len(work), busy_ms=busy, span_ms=span, wall_ms=wall_ms,
                idle_share_of_span=1 - busy / span,
                idle_share_of_wall=1 - busy / wall_ms)
     if kernel:
-        mine = [e for e in evs if any(k in e.name for k in kernel)]
-        if not us(mine) > 0:
+        mine = [ms for e, ms in work if any(k in e.name for k in kernel)]
+        if not sum(mine) > 0:
             raise AssertionError(f"torch.profiler recorded no device time "
                                  f"for kernels named {kernel}")
-        out.update(k_n=len(mine), k_ms=us(mine) / 1e3)
+        out.update(k_n=len(mine), k_ms=sum(mine))
     if top:
         names = {}
-        for e in evs:
-            names.setdefault(e.name, []).append(e)
+        for e, ms in work:
+            names.setdefault(e.name, []).append(ms)
         out["by_name"] = sorted(
-            ([k[:90], len(v), us(v) / 1e3] for k, v in names.items()),
+            ([k[:90], len(v), sum(v)] for k, v in names.items()),
             key=lambda r: -r[2])[:top]
     return out
 
@@ -683,44 +690,36 @@ def _profiled_ms(torch, fn, flush, names=(), reps=10, skip=(), expect=1):
     ``names`` every operation but those whose name holds one of ``skip``
     (the flush's).  The calls launch ``expect`` operations each named by
     ``names`` (with ``skip``: each flush launches ``expect`` named by
-    ``skip``).  On the H100 a profile lost the first two or three device
-    operations of its window, so four small operations (``PRIMER_NAME``)
-    open it; a profile that still shows fewer than expected is taken
-    again, up to three times (and so is one that shows none of the
-    measured operations), and the last one's times are taken per call
-    over the calls it shows (the share seen, the third value)."""
-    from torch.profiler import ProfilerActivity, profile
-    primer = torch.zeros(1, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(4):
-                primer.exp_()
-            torch.cuda.synchronize()
-            for _ in range(reps):
-                flush()
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and PRIMER_NAME not in e.name]
+    ``skip``).  The profile is ``attribution.profile``'s, taken again
+    where it shows fewer than expected or none of the measured
+    operations, and the last one's times are taken per call over the
+    calls it shows (the share seen, the third value)."""
+    from parsy_bench_tpu_torch.scripts import attribution
+    dev = torch.device("cuda")
+
+    def calls():
+        for _ in range(reps):
+            flush()
+            fn()
+
+    def split(evs):
+        work = [e for e, _ in attribution._work(evs, dev)]
         if names:
-            mine = [e for e in evs if any(n in e.name for n in names)]
-            seen = len(mine)
-        else:
-            mine = [e for e in evs if not any(n in e.name for n in skip)]
-            seen = len(evs) - len(mine)
-        if seen == expect * reps and mine:
-            break
-    us = sum(getattr(e, "device_time_total", None)
-             or getattr(e, "cuda_time_total", 0) for e in mine)
+            mine = [e for e in work if any(n in e.name for n in names)]
+            return mine, len(mine)
+        mine = [e for e in work if not any(n in e.name for n in skip)]
+        return mine, len(work) - len(mine)
+    evs, _, _ = attribution.profile(
+        calls, dev, lambda evs: split(evs)[1] == expect * reps
+        and bool(split(evs)[0]))
+    mine, seen = split(evs)
+    us = sum(e.device_time_total for e in mine)
     if not (seen > 0 and us > 0):
         raise AssertionError(f"torch.profiler recorded no device time for "
                              f"{names or 'the calls'}")
-    calls = seen / expect
-    return us / 1e3 / calls, len(mine) / calls, seen / (expect * reps)
+    calls_seen = seen / expect
+    return us / 1e3 / calls_seen, len(mine) / calls_seen, seen / (
+        expect * reps)
 
 
 def _gather_probes(torch, np, kernels, probes, precs, gen):
@@ -1599,6 +1598,69 @@ def _bench_phase(n, med, card):
                 card=card)
 
 
+def _attribution_phase(solver, expected, prof4, card):
+    """Phase 19 (the module docstring): the three attribution scripts on
+    phase 4's solver, which they leave as it was."""
+    from parsy_bench_tpu_torch.scripts import (attribution, fin_ablate,
+                                               floor_r5, solve_floor)
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+    fr = timed("floor_r5", lambda: floor_r5.run(
+        solver, "cuda", reps=ATTR_REPS, all_modes=True))
+    fa = timed("fin_ablate", lambda: fin_ablate.run(solver, "cuda",
+                                                    segment=0))
+    sf = timed("solve_floor", lambda: solve_floor.run(solver, "cuda",
+                                                      ks=SOLVE_KS))
+    own = timed("reps_on_own_output",
+                lambda: attribution.reps_on_own_output(solver, "cuda"))
+    lay = fr["layers_ms"]
+    if not (abs(lay["other"]) <= 0.02 * lay["busy"]
+            and fr["layers"]["nested"] == 0):
+        raise AssertionError(f"floor_r5's scopes leave {lay['other']:.3f} "
+                             f"of {lay['busy']:.3f} busy ms uncovered or "
+                             f"count it twice (|other| > 2 %, or "
+                             f"{fr['layers']['nested']} nested scopes): "
+                             f"{fr['layers']['other_top']}")
+    seg0 = attribution.k1_calls(solver.executor, 0)
+    for name, rec, want in (
+            ("floor_r5", fr, {m: expected if m in floor_r5.K1_MODES else 0
+                              for m in floor_r5.ALL_MODES}),
+            ("fin_ablate", fa, {m: seg0 if m in fin_ablate.K1_MODES else 0
+                                for m in fin_ablate.VARIANTS})):
+        got = {m: r["capture"] for m, r in rec["k1_launches"].items()}
+        prof = {m: r["profiled"] for m, r in rec["k1_launches"].items()}
+        if not got == prof == want:
+            raise AssertionError(f"{name}: K1 launches per mode {got} "
+                                 f"(captures), {prof} (profiler); the plan "
+                                 f"implies {want}")
+    if not sf["full_err"] < 1e-3:
+        raise AssertionError(f"solve_floor's full solve: max|1 - x| "
+                             f"{sf['full_err']:.3e} >= 1e-3")
+    times = [r["full"] for r in fr["segments"]] + [
+        r["restore_s"] for r in fr["segments"]] + [fa["full"]] + list(
+        sf["prefix_s"].values())
+    if not (len(fr["segments"]) == len(solver.plan.segments)
+            and min(times) > 0 and fa["slices_ops"] == 0):
+        raise AssertionError("phase 19: a timed segment reads 0, a segment "
+                             "was not timed or the slices launched work")
+    print("phase 19 floor_r5", json.dumps(fr))
+    print("phase 19 fin_ablate", json.dumps(fa))
+    print("phase 19 solve_floor", json.dumps(sf))
+    print("phase 19 profile_segments reps", json.dumps(own))
+    print("phase 19 layers", json.dumps(dict(
+        layers_ms=lay, other_top=fr["layers"]["other_top"],
+        eager_pass_ops=fr["layers"]["ops"],
+        phase4_replayed_busy_ms=prof4["busy_ms"],
+        phase4_replayed_ops=prof4["ops"], card=card)))
+    return dict(phase_s=sum(secs.values()), script_s=secs, k1_launches=dict(
+        floor_r5=fr["k1_launches"], fin_ablate=fa["k1_launches"]))
+
+
 def _variant_solve(torch, np, name, ex, lx, b_l, x_ref, card):
     """Phase 17's record of one fast forward solve variant: ``solve_prep``
     (capture seconds and nodes, its program's replay time, one call on new
@@ -2249,7 +2311,12 @@ def main() -> int:
     # ---- 18. the bench on the card --------------------------------------
     print("phase 18 bench", json.dumps(_bench_phase(int(a.n), med, card)))
 
-    # ---- 19. result ----------------------------------------------------
+    # ---- 19. the attribution scripts on phase 4's solver ---------------
+    attr = _attribution_phase(solver, expected, prof4, card)
+    print("phase 19", json.dumps(dict(phase_s=attr["phase_s"],
+                                      script_s=attr["script_s"], card=card)))
+
+    # ---- 20. result ----------------------------------------------------
     print(card)
     k2_path = [r for r in k2 if r["shape"][2] <= 64]
     rank_k1 = [r["k1_checks"] for r in multi["runs"] if "k1_checks" in r]
@@ -2302,7 +2369,10 @@ def main() -> int:
                  top_plan_per_replay=last["top_factorize"][
                      "k1_launches_per_replay"],
                  restored_artifact_factorize=last["artifact"][
-                     "k1_launches_run"])),
+                     "k1_launches_run"]),
+             # phase 19: per script and mode, K1's launches per replay of
+             # its programs (captures, profiler, plan)
+             phase19_launches=attr["k1_launches"]),
         dict(name="finalize_fused", route="cuda",
              source="parsy_bench_tpu_torch/csrc/finalize_fused.cu",
              replaces="parsy_bench_tpu/ops/pallas_kernels.py:235",

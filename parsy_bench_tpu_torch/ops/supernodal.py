@@ -75,6 +75,12 @@ Differences from the JAX executor, none of which changes a result:
   before its one write per class, which is what the JAX copies give; the
   fused finalize and the fast solve's slot windows likewise gather every
   operand of a step before they write.
+
+The single-device factorize step runs each of its pieces inside a
+``torch.profiler.record_function`` scope (``SCOPES``): the per-layer
+device time of ``scripts/floor_r5.py``'s ``layers_ms``.  A scope launches
+nothing and a captured program's replay runs none of them; outside a
+profile each costs host time only.
 """
 from __future__ import annotations
 
@@ -87,6 +93,18 @@ from parsy_bench_tpu_torch.ops import dense, graphs, kernels
 from parsy_bench_tpu_torch.ops.device import (refuse_tf32, require,
                                               resolve_device, torch_dtype)
 from parsy_bench_tpu_torch.symbolic.splan import SupernodalPlan, SupSegment
+
+_scope = torch.profiler.record_function
+#: the factorize step's scopes: the A values' scatter into the pools
+#: (``_init_pools``); the update operands' gathers, their product and the
+#: one-hot alignment (``update_block``); the call buffer, the ladder sums
+#: and the window take and subtract (``_apply_updates_gather``; in the
+#: scatter branch, the delta buffers and their subtraction); the
+#: masked SPD build, K1, the finalize tail and the delta
+#: (``_finalize``, unfused)
+SCOPES = ("init", "upd.operands", "upd.product", "upd.align", "upd.cat",
+          "upd.ladder", "upd.take_sub", "fin.spd", "fin.k1", "fin.diff",
+          "fin.delta")
 
 def chol_inverse(D):
     """Batched masked-SPD Cholesky + inverse: the CUDA kernel for a CUDA
@@ -159,11 +177,14 @@ def update_block(pool8, a8, b8, colq, b, ar, dtype):
     operands at ``b8`` of the packed pool ``pool8`` (R/8, 8K), and S the
     one-hot column-alignment selector from ``colq`` (lanes, Q).  ``ar(k)``
     is ``arange(k)`` on the pool's device."""
-    A = pool8[a8[:, None] + ar(b.Mc // 8)].reshape(-1, b.Mc, b.K)
-    Braw = pool8[b8[:, None] + ar(b.Q // 8)].reshape(-1, b.Q, b.K)
-    Chat = torch.bmm(A, Braw.transpose(1, 2))
-    S = (ar(b.c)[None, :, None] == colq[:, None, :]).to(dtype)
-    return torch.bmm(Chat, S.transpose(1, 2))
+    with _scope("upd.operands"):
+        A = pool8[a8[:, None] + ar(b.Mc // 8)].reshape(-1, b.Mc, b.K)
+        Braw = pool8[b8[:, None] + ar(b.Q // 8)].reshape(-1, b.Q, b.K)
+    with _scope("upd.product"):
+        Chat = torch.bmm(A, Braw.transpose(1, 2))
+    with _scope("upd.align"):
+        S = (ar(b.c)[None, :, None] == colq[:, None, :]).to(dtype)
+        return torch.bmm(Chat, S.transpose(1, 2))
 
 
 def _lanes_major(arr):
@@ -586,11 +607,12 @@ class SupernodalExecutor(graphs.ProgramHost):
     def _init_pools(self, a, pools):
         """Zero the per-class packed pools and scatter A values into
         them."""
-        for ci, p in enumerate(pools):
-            pos, sel = self._a_map[ci]
-            flat = p.view(-1)
-            flat.zero_()
-            flat.index_add_(0, pos, a[sel])
+        with _scope("init"):
+            for ci, p in enumerate(pools):
+                pos, sel = self._a_map[ci]
+                flat = p.view(-1)
+                flat.zero_()
+                flat.index_add_(0, pos, a[sel])
 
     def init_pools(self, a_data):
         """New per-class packed pools holding the A values and zeros, op by
@@ -657,10 +679,15 @@ class SupernodalExecutor(graphs.ProgramHost):
             ent = tabs.gsc[ci]
             if ent is None:
                 continue
-            zero = torch.zeros((1, c), dtype=self.dtype, device=self.device)
-            call = torch.cat([zero] + cbuf[ci])
-            parts = [zero] + [call[gi[t]].sum(dim=1) for gi in ent["gidx"]]
-            wins[ci].sub_(torch.cat(parts)[ent["pidx"][t]])
+            with _scope("upd.cat"):
+                zero = torch.zeros((1, c), dtype=self.dtype,
+                                   device=self.device)
+                call = torch.cat([zero] + cbuf[ci])
+            with _scope("upd.ladder"):
+                parts = [zero] + [call[gi[t]].sum(dim=1)
+                                  for gi in ent["gidx"]]
+            with _scope("upd.take_sub"):
+                wins[ci].sub_(torch.cat(parts)[ent["pidx"][t]])
 
     def _apply_updates(self, pools, wins, seg, tabs, t, group=None):
         """Batched update GEMMs row-added into per-class delta windows
@@ -674,9 +701,10 @@ class SupernodalExecutor(graphs.ProgramHost):
                 raise ValueError("the gather update tables are "
                                  "single-device only")
             return self._apply_updates_gather(pools, wins, seg, tabs, t)
-        deltas = [torch.zeros((seg.wslice[ci] + 1, c), dtype=self.dtype,
-                              device=self.device)
-                  for ci, c in enumerate(self.classes)]
+        with _scope("upd.take_sub"):
+            deltas = [torch.zeros((seg.wslice[ci] + 1, c), dtype=self.dtype,
+                                  device=self.device)
+                      for ci, c in enumerate(self.classes)]
         for b, ut in zip(seg.upd, tabs.upd):
             lanes = slice(None)
             if group is not None:
@@ -688,8 +716,9 @@ class SupernodalExecutor(graphs.ProgramHost):
         if group is not None:
             for d in deltas:
                 group.psum(d)
-        for ci in range(self.ncls):
-            wins[ci].sub_(deltas[ci][:seg.wslice[ci]])
+        with _scope("upd.take_sub"):
+            for ci in range(self.ncls):
+                wins[ci].sub_(deltas[ci][:seg.wslice[ci]])
 
     # ---------------------------------------------------------- finalize
     def _finalize(self, wins, seg, tabs, t):
@@ -712,7 +741,8 @@ class SupernodalExecutor(graphs.ProgramHost):
             if not groups:
                 continue
             win = wins[ci]
-            delta = torch.zeros_like(win)
+            with _scope("fin.delta"):
+                delta = torch.zeros_like(win)
             blks, ws = {}, {}
             for grp in groups:
                 for k in grp:
@@ -722,10 +752,12 @@ class SupernodalExecutor(graphs.ProgramHost):
                     ws[k] = ft.w[t]
             Ls, Linvs = {}, {}
             for grp in groups:
-                D = dense.masked_spd(
-                    torch.cat([blks[k][:, :c, :] for k in grp]),
-                    torch.cat([ws[k] for k in grp]), c, self.dtype)
-                Lg, Lig = chol_inverse(D)
+                with _scope("fin.spd"):
+                    D = dense.masked_spd(
+                        torch.cat([blks[k][:, :c, :] for k in grp]),
+                        torch.cat([ws[k] for k in grp]), c, self.dtype)
+                with _scope("fin.k1"):
+                    Lg, Lig = chol_inverse(D)
                 off = 0
                 for k in grp:
                     Pk = seg.fin[k].P
@@ -737,11 +769,15 @@ class SupernodalExecutor(graphs.ProgramHost):
                 # Linv^T rides in the (otherwise zero) strict upper
                 # triangle of the diag block: the solves read it back
                 # (_inv_blk)
-                diff = dense.finalize_diff(blks[k], ws[k], int(ft.cnt[t]),
-                                           Ls[k], Linvs[k])
+                with _scope("fin.diff"):
+                    diff = dense.finalize_diff(blks[k], ws[k],
+                                               int(ft.cnt[t]), Ls[k],
+                                               Linvs[k])
                 off = int(ft.boff[t])
-                delta[off:off + b.P * b.H] += diff.view(-1, c)
-            win += delta
+                with _scope("fin.delta"):
+                    delta[off:off + b.P * b.H] += diff.view(-1, c)
+            with _scope("fin.delta"):
+                win += delta
 
     def _finalize_shard(self, wins, seg, tabs, t, group, groups):
         """``_finalize`` in one rank of ``group`` (the JAX ``axis_name``

@@ -51,7 +51,9 @@ def _timed(device, fn):
 def _profiled(device, fn):
     """(summed device time (ms) of one call's CUDA operations under
     torch.profiler, or None where it recorded none: not measured; the
-    call's result)."""
+    call's result).  The device-side marks of ``record_function`` scopes
+    (the executors' ``supernodal.SCOPES``) are spans over those
+    operations, not operations: they are left out."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -59,7 +61,8 @@ def _profiled(device, fn):
         torch.cuda.synchronize(device)
     us = sum(getattr(e, "device_time_total", None)
              or getattr(e, "cuda_time_total", 0) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False))
     return (us / 1e3 if us > 0 else None), out
 
 

@@ -30,7 +30,12 @@ string turned to ``"cpu"`` and these stand-ins:
 * the multi-device phase (16) runs its rank processes for real, gloo on
   the CPU, on the small plans; each rank installs the kernel stand-ins
   above before it runs (``_rank_with_stubs``), so that its K1 counts are
-  what the card's would be.
+  what the card's would be;
+* the attribution scripts (phase 19) run on the CPU at the main path's
+  small matrix with 2 runs per sample; their profiles of whole calls
+  (``scripts/attribution.device_ops``) count the kernel stand-ins' runs,
+  as the profiler stand-in above does, while ``floor_r5``'s per-scope
+  profile runs for real on the CPU (host time).
 
 Every number it prints is a placeholder or a CPU time: it shows that the
 script runs through, not how fast anything is.
@@ -52,6 +57,7 @@ from parsy_bench_tpu_torch.core import generate  # noqa: E402
 from parsy_bench_tpu_torch.ops import (build, dense, graphs,  # noqa: E402
                                        kernels, supernodal)
 from parsy_bench_tpu_torch.parallel import comm  # noqa: E402
+from parsy_bench_tpu_torch.scripts import attribution  # noqa: E402
 
 #: kernel runs, replays included (what a profiler would see)
 EXECUTED = {name: 0 for name in kernels._WRAPPERS}
@@ -178,6 +184,19 @@ def _device_ops(torch, fn, kernel=(), top=0):
                 k_n=n, k_ms=1.0, by_name=[["(rehearsal)", 1, 1.0]][:top])
 
 
+def _attr_device_ops(fn, device, kernel=(), expect=None):
+    """``attribution.device_ops``: the stand-ins' runs in the second of
+    two calls are its operations, K1's its ``k_n``."""
+    fn()
+    before = dict(EXECUTED)
+    fn()
+    ran = {k: EXECUTED[k] - before[k] for k in EXECUTED}
+    out = dict(ops=sum(ran.values()), busy_ms=1.0, tries=1)
+    if kernel:
+        out.update(k_n=ran["cholesky_inverse_cuda"], k_ms=1.0)
+    return out
+
+
 #: the stand-ins whose runs a profile of phase 10 counts as device
 #: operations (P3's ladder sums, P2's update products)
 _PROFILED = ("gather_sum_cuda", "probe_matmul_cuda")
@@ -197,6 +216,7 @@ def main() -> int:
     _stub_cuda()
     _stub_probes()
     _stub_launch()
+    attribution.device_ops = _attr_device_ops
     path = os.path.join(ROOT, "chip_smoke.py")
     with open(path) as f:
         src = f.read()
@@ -211,8 +231,9 @@ def main() -> int:
     exec(compile(src, path, "exec"), ns)
     for name in ("SIMPLICIAL_GRID", "CLI_RUNS", "K1_SHAPES", "K1_SMALL",
                  "K2_SHAPES", "DIST_GROUPS", "SHARDED_G", "DENSE_TOP_COLS",
-                 "GPOOL_MB", "BENCH_CMD", "_multi_device_phase",
-                 "_last_slice_phase",
+                 "GPOOL_MB", "BENCH_CMD", "ATTR_REPS", "SOLVE_KS",
+                 "_multi_device_phase", "_last_slice_phase",
+                 "_attribution_phase",
                  "_card", "_device_ops", "_profiled_ms"):
         if name not in ns:
             raise AssertionError(f"chip_smoke.py no longer defines {name}")
@@ -242,6 +263,8 @@ def main() -> int:
                       ("trisolve", "gen:laplace3d:5"),
                       ("trisolve", "gen:laplace3d:8", "--lower", "--tier",
                        "simplicial", "--schedule", "coarsened"))
+    # the attribution scripts with 2 runs per sample
+    ns["ATTR_REPS"] = 2
     # the bench on the CPU, at the main path's small matrix
     ns["BENCH_CMD"] = ("-c", "import json; from parsy_bench_tpu_torch "
                        "import bench; r = bench.run(grid=12, device='cpu'); "
