@@ -199,7 +199,20 @@ Phases, each of which raises on failure (nothing is caught):
    inside another, which would count a kernel twice), K1's launches per
    mode (the captures and the profiler against the plan), the full
    solve's max|1 - x| < 1e-3, and every timed segment's ``full`` and
-   restore above 0.
+   restore above 0;
+20. the reference-scale run (``python -m
+   parsy_bench_tpu_torch.scripts.large_run``, the port's
+   ``scripts/large_run.py``) as a subprocess on the card at
+   ``laplace_3d(LARGE_GRID)``, n = 1,000,000 (``LARGE_TIMEOUT``): exit 0,
+   its JSON file with exactly its keys in order, n, the scatter update
+   mode, group 8, the SPD-solve gate and max|1 - x| < 1e-3, this card, K1
+   launched once per plan call in each factorize (the programs' captures)
+   and twice that over the run (warm-up and capture); then K1 against its
+   plain version at every (P, c) of that run's batches that phase 3 did
+   not check; then ``scale_test`` at ``SCALE_ARGS`` (k = 32, ND, 5
+   iterations) as a subprocess: its three lines with their keys, this card
+   and a factor residual < 1e-3.  Gated on correctness only, never on
+   time.
 
 Output: JSON lines of each phase's numbers, the card line, one JSON line
 ``{"kernels": [...]}`` (K1, K2, P1, P2, P3, each with the launches of its
@@ -210,7 +223,8 @@ bound, the flush study and the ladder sums; K1 and K2 also with their
 launches per replay from the capture and from the profiler; K1 also with
 its launches in each rank's factorize of phase 16, its checks at the
 ranks' batch shapes, its launches in phase 17's factorizes and, per
-script and mode, in phase 19's programs) and, last,
+script and mode, in phase 19's programs, and in phase 20's reference-scale
+run with its checks at that run's new batch shapes) and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
 """
@@ -261,6 +275,15 @@ BENCH_CMD = ("-m", "parsy_bench_tpu_torch.bench")
 #: is 20; fin_ablate keeps its 10) and solve_floor's segment prefixes
 ATTR_REPS = 20
 SOLVE_KS = (8, 16, 24, 34)
+#: phase 20: the reference-scale run (``python LARGE_CMD out grid``) at
+#: laplace_3d(LARGE_GRID), n = 1,000,000, and ``scale_test`` at
+#: ``SCALE_ARGS`` (k ordering iters), each with its own time limit
+LARGE_CMD = ("-m", "parsy_bench_tpu_torch.scripts.large_run")
+LARGE_GRID = 100
+LARGE_TIMEOUT = 600
+SCALE_CMD = ("-m", "parsy_bench_tpu_torch.scripts.scale_test")
+SCALE_ARGS = ("32", "nd", "5")
+SCALE_TIMEOUT = 300
 #: the kernels' names as torch.profiler shows them (csrc/chol_inverse.cu,
 #: csrc/finalize_fused.cu)
 K1_NAMES = ("chol_inverse_warp_kernel", "chol_inverse_blocked_kernel")
@@ -1536,24 +1559,31 @@ def _multi_device_phase(torch, np, solver, cfg, lref, b_l, bp, x_fast,
     return out
 
 
-def _cli_phase(np, card):
-    """Phase 15: the CLI's subcommands as subprocesses on the card; each
-    must exit 0 and verify."""
+def _module_run(cmd, args, timeout):
+    """(stdout, seconds) of ``python cmd args`` from the checkout's root;
+    raises on a non-zero exit."""
     import os
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, *cmd, *args], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} {' '.join(args)} exited "
+                             f"{run.returncode}: {run.stdout[-2000:]}\n"
+                             f"{run.stderr[-2000:]}")
+    return run.stdout, wall
+
+
+def _cli_phase(np, card):
+    """Phase 15: the CLI's subcommands as subprocesses on the card; each
+    must exit 0 and verify."""
     out = []
     for args in CLI_RUNS:
-        cmd = [sys.executable, "-m", "parsy_bench_tpu_torch.cli", *args,
-               "--device", "cuda"]
-        t0 = time.perf_counter()
-        run = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
-                             text=True, timeout=900)
-        wall = time.perf_counter() - t0
-        if run.returncode != 0:
-            raise AssertionError(f"{' '.join(args)} exited "
-                                 f"{run.returncode}: {run.stderr[-2000:]}")
-        line = json.loads([ln for ln in run.stdout.splitlines()
+        stdout, wall = _module_run(("-m", "parsy_bench_tpu_torch.cli"),
+                                   [*args, "--device", "cuda"], 900)
+        line = json.loads([ln for ln in stdout.splitlines()
                            if ln.startswith("{")][-1])
         ok = (line.get("verified") if args[0] == "trisolve"
               else line["factor_residual"] < 1e-3
@@ -1569,20 +1599,11 @@ def _cli_phase(np, card):
 def _bench_phase(n, med, card):
     """Phase 18: the bench's line from a subprocess on the card, held to
     its keys, phase 4's n, group 16, both gates and this card."""
-    import os
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=root)
-    t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, *BENCH_CMD], cwd=root, env=env,
-                         capture_output=True, text=True, timeout=900)
-    wall = time.perf_counter() - t0
-    if run.returncode != 0:
-        raise AssertionError(f"the bench exited {run.returncode}: "
-                             f"{run.stderr[-2000:]}")
+    stdout, wall = _module_run(BENCH_CMD, [], 900)
     # imported after the run: the package's import builds the native
     # library, which a cold run (tools/bench_cold_warm.py) must build itself
     from parsy_bench_tpu_torch import bench
-    line = json.loads(run.stdout.strip().splitlines()[-1])
+    line = json.loads(stdout.strip().splitlines()[-1])
     keys = bench.BENCH_KEYS + bench.EXTRA_KEYS
     if sorted(line) != sorted(keys):
         raise AssertionError(f"the bench's keys {sorted(line)} are not "
@@ -1659,6 +1680,67 @@ def _attribution_phase(solver, expected, prof4, card):
         phase4_replayed_ops=prof4["ops"], card=card)))
     return dict(phase_s=sum(secs.values()), script_s=secs, k1_launches=dict(
         floor_r5=fr["k1_launches"], fin_ablate=fa["k1_launches"]))
+
+
+def _reference_scale_phase(torch, dense, kernels, checked, card):
+    """Phase 20 (the module docstring): the reference-scale run at
+    ``laplace_3d(LARGE_GRID)`` and ``scale_test`` at ``SCALE_ARGS`` as
+    subprocesses on the card, and K1 at the large run's batch shapes that
+    phase 3 did not check."""
+    import os
+    import tempfile
+    from parsy_bench_tpu_torch.scripts import large_run
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "large_run.json")
+        stdout, large_s = _module_run(
+            LARGE_CMD, [path, str(LARGE_GRID), "--device", "cuda"],
+            LARGE_TIMEOUT)
+        with open(path) as f:
+            line = json.load(f)
+    stages = [json.loads(ln) for ln in stdout.splitlines()
+              if ln.startswith('{"stage"')]
+    keys = list(large_run.ART_KEYS + large_run.EXTRA_KEYS)
+    k1 = line.get("k1_launches_per_factorize")
+    if not (list(line) == keys and line["n"] == LARGE_GRID ** 3
+            and line["update_delta"] == "scatter"
+            and line["group"] == 8
+            and line["factor_residual"] < 1e-3
+            and line["trisolve_residual"] < 1e-3
+            and line["device"] == card
+            and k1 == line["chol_calls_per_factorize"] > 0
+            and line["k1_launches_run"] == 2 * k1):
+        raise AssertionError(
+            f"the large run's line does not hold its keys {keys}, "
+            f"n = {LARGE_GRID ** 3}, the scatter mode, group 8, both gates "
+            f"< 1e-3, the card {card!r}, and K1 once per plan call per "
+            f"factorize and twice over the run (warm-up and capture): "
+            f"{line}")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    new = sorted({tuple(s) for s in line["k1_shapes"]} - set(checked))
+    k1_checks = [_check_k1(torch, dense, kernels, P, c, gen)
+                 for P, c in new]
+    for r in k1_checks:
+        print("phase 20 K1", json.dumps(r))
+    stdout, scale_s = _module_run(
+        SCALE_CMD, [*SCALE_ARGS, "--device", "cuda"], SCALE_TIMEOUT)
+    scale = [json.loads(ln) for ln in stdout.splitlines()
+             if ln.startswith("{")]
+    want = [("analyze_s", "table_MB", "pool_MB", "executor_table_MB"),
+            ("factorize_s", "gflops", "residual"),
+            ("trisolve_s", "trisolve_gnnz_per_s")]
+    if not (len(scale) == 3
+            and all(set(k) <= set(s) and s["device"] == card
+                    for k, s in zip(want, scale))
+            and scale[1]["residual"] < 1e-3
+            and scale[1]["factorize_s"] > 0 and scale[2]["trisolve_s"] > 0):
+        raise AssertionError(f"scale_test {' '.join(SCALE_ARGS)}: three "
+                             f"lines with their keys, the card {card!r} and "
+                             f"a factor residual < 1e-3 expected: {scale}")
+    return dict(line=line, stages=stages, large_run_process_s=large_s,
+                k1_checks=k1_checks, scale_test=scale,
+                scale_test_args=list(SCALE_ARGS), scale_test_process_s=scale_s,
+                phase_s=time.perf_counter() - t_phase, card=card)
 
 
 def _variant_solve(torch, np, name, ex, lx, b_l, x_ref, card):
@@ -2316,7 +2398,19 @@ def main() -> int:
     print("phase 19", json.dumps(dict(phase_s=attr["phase_s"],
                                       script_s=attr["script_s"], card=card)))
 
-    # ---- 20. result ----------------------------------------------------
+    # ---- 20. the reference-scale run and scale_test ---------------------
+    large = _reference_scale_phase(torch, dense, kernels,
+                                   set(K1_SHAPES) | set(K1_SMALL), card)
+    print("phase 20 large_run stages", json.dumps(large["stages"]))
+    print("phase 20 large_run", json.dumps(large["line"]))
+    print("phase 20 scale_test", json.dumps(large["scale_test"]))
+    print("phase 20", json.dumps(dict(
+        phase_s=large["phase_s"],
+        large_run_process_s=large["large_run_process_s"],
+        scale_test_process_s=large["scale_test_process_s"],
+        k1_new_shapes=len(large["k1_checks"]), card=card)))
+
+    # ---- 21. result ----------------------------------------------------
     print(card)
     k2_path = [r for r in k2 if r["shape"][2] <= 64]
     rank_k1 = [r["k1_checks"] for r in multi["runs"] if "k1_checks" in r]
@@ -2352,7 +2446,7 @@ def main() -> int:
              profiled_launches_per_replay=k1_prof_n,
              # phase 3's main-path shapes and phase 16's rank shapes
              max_abs_err=max(max(r["max_abs_err_L"], r["max_abs_err_Linv"])
-                             for r in k1 + rank_k1),
+                             for r in k1 + rank_k1 + large["k1_checks"]),
              # one call at each main-path shape; the library time is the
              # pair cholesky_ex + solve_triangular
              **summed(k1), shapes=k1 + k1_small + k1_f64,
@@ -2372,7 +2466,16 @@ def main() -> int:
                      "k1_launches_run"]),
              # phase 19: per script and mode, K1's launches per replay of
              # its programs (captures, profiler, plan)
-             phase19_launches=attr["k1_launches"]),
+             phase19_launches=attr["k1_launches"],
+             # phase 20: the reference-scale run's K1 launches (per
+             # factorize from the captures, the plan's calls, the whole
+             # process's count) and the checks at its batch shapes that
+             # phase 3 did not check
+             phase20_launches=dict(
+                 per_factorize=large["line"]["k1_launches_per_factorize"],
+                 plan=large["line"]["chol_calls_per_factorize"],
+                 run=large["line"]["k1_launches_run"]),
+             phase20_shapes=large["k1_checks"]),
         dict(name="finalize_fused", route="cuda",
              source="parsy_bench_tpu_torch/csrc/finalize_fused.cu",
              replaces="parsy_bench_tpu/ops/pallas_kernels.py:235",

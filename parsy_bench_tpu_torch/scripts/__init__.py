@@ -1,13 +1,17 @@
-"""The port's per-layer attribution scripts, the counterparts of the
-repository's ``scripts/floor_r5.py``, ``scripts/fin_ablate.py`` and
-``scripts/solve_floor.py``:
+"""The port's drivers of the solver that sit outside the package, the
+counterparts of the repository's ``scripts/``:
 
     python -m parsy_bench_tpu_torch.scripts.floor_r5 [--all-modes]
     python -m parsy_bench_tpu_torch.scripts.fin_ablate [--segment 0]
     python -m parsy_bench_tpu_torch.scripts.solve_floor [--ks 8,16,24,34]
+    python -m parsy_bench_tpu_torch.scripts.large_run [out.json] [grid]
+    python -m parsy_bench_tpu_torch.scripts.scale_test [k] [ordering] [iters]
 
-Each runs on the card unless ``--device cpu`` is given, and prints one
-JSON line with the JAX script's keys.  ``attribution`` holds what they
+Each runs on the card unless ``--device cpu`` is given.  The per-layer
+attribution scripts (``floor_r5``, ``fin_ablate``, ``solve_floor``) print
+one JSON line with the JAX script's keys; ``attribution`` holds what they
 share: their own executor, the restore-and-time protocol and the
-profiler's per-scope device time.
+profiler's per-scope device time.  The reference-scale scripts
+(``large_run``, ``scale_test``) print the JAX scripts' lines, and
+``large_run`` writes its line to a file.
 """

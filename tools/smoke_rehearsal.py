@@ -31,6 +31,11 @@ string turned to ``"cpu"`` and these stand-ins:
   the CPU, on the small plans; each rank installs the kernel stand-ins
   above before it runs (``_rank_with_stubs``), so that its K1 counts are
   what the card's would be;
+* the reference-scale run (phase 20, a real subprocess) runs
+  ``large_run`` on the CPU at laplace_3d(10) with ``REFERENCE_N`` at 500
+  (the scatter mode and the pools' row sums) and this module's counted
+  kernel stand-ins and acted-out capture, its device key set to the card
+  line's stand-in; ``scale_test`` (a real subprocess) at laplace_3d(8);
 * the attribution scripts (phase 19) run on the CPU at the main path's
   small matrix with 2 runs per sample; their profiles of whole calls
   (``scripts/attribution.device_ops``) count the kernel stand-ins' runs,
@@ -232,8 +237,9 @@ def main() -> int:
     for name in ("SIMPLICIAL_GRID", "CLI_RUNS", "K1_SHAPES", "K1_SMALL",
                  "K2_SHAPES", "DIST_GROUPS", "SHARDED_G", "DENSE_TOP_COLS",
                  "GPOOL_MB", "BENCH_CMD", "ATTR_REPS", "SOLVE_KS",
+                 "LARGE_CMD", "LARGE_GRID", "SCALE_CMD", "SCALE_ARGS",
                  "_multi_device_phase", "_last_slice_phase",
-                 "_attribution_phase",
+                 "_attribution_phase", "_reference_scale_phase",
                  "_card", "_device_ops", "_profiled_ms"):
         if name not in ns:
             raise AssertionError(f"chip_smoke.py no longer defines {name}")
@@ -269,6 +275,25 @@ def main() -> int:
     ns["BENCH_CMD"] = ("-c", "import json; from parsy_bench_tpu_torch "
                        "import bench; r = bench.run(grid=12, device='cpu'); "
                        f"r['device'] = {card!r}; print(json.dumps(r))")
+    # the reference-scale run at laplace_3d(10) with its n threshold at
+    # 500, so that it takes the scatter mode and the pools' row sums, with
+    # the counted kernel stand-ins and the acted-out capture of this
+    # module; scale_test at laplace_3d(8)
+    ns["LARGE_GRID"] = 10
+    ns["LARGE_CMD"] = (
+        "-c", "import sys; sys.path.insert(0, 'tools'); "
+        "import smoke_rehearsal as R; R._stub_kernels(); "
+        "R.graphs.Program.run = R._program_run; "
+        "from parsy_bench_tpu_torch.scripts import large_run as L; "
+        "L.REFERENCE_N = 500; run = L.run; "
+        f"L.run = lambda *a: dict(run(*a), device={card!r}); "
+        "L.main(sys.argv[1:])")
+    ns["SCALE_ARGS"] = ("8", "nd", "2")
+    ns["SCALE_CMD"] = (
+        "-c", "import json, sys; "
+        "from parsy_bench_tpu_torch.scripts import scale_test as S; "
+        f"S._line = lambda o: print(json.dumps(dict(o, device={card!r})), "
+        "flush=True); S.main(sys.argv[1:])")
     return ns["main"]()
 
 
