@@ -155,7 +155,8 @@ Phases, each of which raises on failure (nothing is caught):
    medians (host clock, synchronized), each rank's device busy ms of its
    first factorize (torch.profiler in the rank).  A rank that raises or
    hangs fails the phase.  These walls come from host-staged collectives among ranks
-   that share one card: no multi-GPU figure;
+   that share one card: no multi-GPU figure.  Phase 21's ``eval`` runs
+   beside this phase;
 17. the last single-device slice on phase 4's matrix: a second analyze
    with ``dense_top_cols=DENSE_TOP_COLS`` and ``verify=True`` (its
    ``verify_s``; ``verify_plan``'s stats on it and on phase 4's plan; the
@@ -212,7 +213,27 @@ Phases, each of which raises on failure (nothing is caught):
    not check; then ``scale_test`` at ``SCALE_ARGS`` (k = 32, ND, 5
    iterations) as a subprocess: its three lines with their keys, this card
    and a factor residual < 1e-3.  Gated on correctness only, never on
-   time.
+   time;
+21. the sweep drivers (``parsy_bench_tpu_torch/scripts/``) as subprocesses
+   on the card, each with its own time limit: ``eval`` at ``EVAL_ARGS``
+   (``laplace_3d(16)``, n = 4,096, with its trisolve and baseline runs:
+   ``EVAL_LINES`` lines, none an error line, each Cholesky line's factor
+   and solve residuals < 1e-3, each trisolve line verified, the device
+   ``cuda``); ``h1_vs_coarse`` at ``H1_ARGS`` (``laplace_3d(24)``,
+   n = 13,824, ND): a row per ``segment_alpha`` with its keys, this card,
+   a residual < 1e-3 and K1's launches per factorize equal to that plan's
+   K1 calls; ``calibrate_model`` at ``CAL_GRID`` (the main path): its
+   artifact's keys, phase 4's segments, every fitted constant >= 0 and not
+   NaN and each variant's gates.  ``eval`` runs in a thread beside phase
+   16, whose rank processes' walls are no figure, and is joined when
+   phase 16 ends, so no later phase shares the card with it; its lines'
+   times are taken while the ranks share the card and the host, and it
+   is checked here.  Then phase 17's ``profile_segments``
+   time of each segment beside phase 19's restored ``full`` time
+   (``_segment_times``: the ratio of the sums, the largest and smallest
+   ratio of a segment, whether both rank the segments alike, whether they
+   agree within ``SEGMENT_TIME_TOL``).  Gated on correctness only, never
+   on time or on the model's signs.
 
 Output: JSON lines of each phase's numbers, the card line, one JSON line
 ``{"kernels": [...]}`` (K1, K2, P1, P2, P3, each with the launches of its
@@ -224,7 +245,8 @@ launches per replay from the capture and from the profiler; K1 also with
 its launches in each rank's factorize of phase 16, its checks at the
 ranks' batch shapes, its launches in phase 17's factorizes and, per
 script and mode, in phase 19's programs, and in phase 20's reference-scale
-run with its checks at that run's new batch shapes) and, last,
+run with its checks at that run's new batch shapes, and per
+``segment_alpha`` in phase 21's ``h1_vs_coarse``) and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
 """
@@ -236,6 +258,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 #: main-path batch shapes (P, c) of the chol_inverse kernel at
 #: laplace_3d(48), checked against the plan below: the largest per width
@@ -284,6 +307,26 @@ LARGE_TIMEOUT = 600
 SCALE_CMD = ("-m", "parsy_bench_tpu_torch.scripts.scale_test")
 SCALE_ARGS = ("32", "nd", "5")
 SCALE_TIMEOUT = 300
+#: phase 21: the sweep drivers as subprocesses, each with its own time
+#: limit: ``eval`` at a matrix of the JAX package's recorded set
+#: (n = 4,096; EVAL_r05.jsonl) with its trisolve and baseline runs
+#: (``EVAL_LINES`` lines), ``h1_vs_coarse`` at the JAX script's default
+#: grid and ordering, ``calibrate_model`` at the main path's grid
+EVAL_CMD = ("-m", "parsy_bench_tpu_torch.scripts.eval")
+EVAL_ARGS = ("gen:laplace3d:16", "--iters", "3", "--trisolve",
+             "--baselines")
+EVAL_LINES = 9
+EVAL_TIMEOUT = 600
+H1_CMD = ("-m", "parsy_bench_tpu_torch.scripts.h1_vs_coarse")
+H1_ARGS = ("24", "nd")
+H1_TIMEOUT = 600
+CAL_CMD = ("-m", "parsy_bench_tpu_torch.scripts.calibrate_model")
+CAL_GRID = 48
+CAL_TIMEOUT = 600
+#: the relative gap within which phase 17's ``profile_segments`` times and
+#: phase 19's restored ``full`` times count as the same, in sum and in
+#: every segment
+SEGMENT_TIME_TOL = 0.05
 #: the kernels' names as torch.profiler shows them (csrc/chol_inverse.cu,
 #: csrc/finalize_fused.cu)
 K1_NAMES = ("chol_inverse_warp_kernel", "chol_inverse_blocked_kernel")
@@ -1679,7 +1722,8 @@ def _attribution_phase(solver, expected, prof4, card):
         phase4_replayed_busy_ms=prof4["busy_ms"],
         phase4_replayed_ops=prof4["ops"], card=card)))
     return dict(phase_s=sum(secs.values()), script_s=secs, k1_launches=dict(
-        floor_r5=fr["k1_launches"], fin_ablate=fa["k1_launches"]))
+        floor_r5=fr["k1_launches"], fin_ablate=fa["k1_launches"]),
+        full_s=[r["full"] for r in fr["segments"]])
 
 
 def _reference_scale_phase(torch, dense, kernels, checked, card):
@@ -1741,6 +1785,122 @@ def _reference_scale_phase(torch, dense, kernels, checked, card):
                 k1_checks=k1_checks, scale_test=scale,
                 scale_test_args=list(SCALE_ARGS), scale_test_process_s=scale_s,
                 phase_s=time.perf_counter() - t_phase, card=card)
+
+
+def _segment_times(profiled, restored):
+    """Phase 17's ``profile_segments`` time of each segment beside phase
+    19's restored ``full`` time of it (restore subtracted): their ratios,
+    the ratio of their sums, whether both rank the segments alike, and
+    whether they agree within ``SEGMENT_TIME_TOL`` in sum and in every
+    segment."""
+    if len(profiled) != len(restored):
+        raise AssertionError(f"{len(profiled)} profiled segments against "
+                             f"{len(restored)} restored ones")
+    ratios = [p / r for p, r in zip(profiled, restored)]
+    sum_ratio = sum(profiled) / sum(restored)
+
+    def order(t):
+        return sorted(range(len(t)), key=t.__getitem__)
+    return dict(
+        profiled_s=list(profiled), restored_full_s=list(restored),
+        ratios=ratios, sum_ratio=sum_ratio, max_ratio=max(ratios),
+        min_ratio=min(ratios),
+        worst_segment=max(range(len(ratios)),
+                          key=lambda i: abs(ratios[i] - 1)),
+        same_ranking=order(profiled) == order(restored),
+        within_tol=abs(sum_ratio - 1) <= SEGMENT_TIME_TOL
+        and all(abs(r - 1) <= SEGMENT_TIME_TOL for r in ratios),
+        tol=SEGMENT_TIME_TOL)
+
+
+def _sweep_phase(evaluation, nseg, profiled, restored, card):
+    """Phase 21 (the module docstring): the sweep drivers as subprocesses
+    on the card, gated on correctness only, then phase 17's and phase 19's
+    per-segment times side by side (``_segment_times``).  ``evaluation``
+    is the (stdout, seconds) of the ``eval`` run that went beside phase
+    16."""
+    import os
+    import tempfile
+    from parsy_bench_tpu_torch import CholeskySolver
+    from parsy_bench_tpu_torch.core import generate
+    from parsy_bench_tpu_torch.scripts import calibrate_model, h1_vs_coarse
+    from parsy_bench_tpu_torch.utils import calibrate
+    t_phase = time.perf_counter()
+    out = dict(card=card)
+
+    # h1_vs_coarse: four rows with their keys, the residual, the card and
+    # K1 once per plan call in each factorize
+    with tempfile.TemporaryDirectory() as tmp:
+        stdout, out["h1_process_s"] = _module_run(
+            H1_CMD, [*H1_ARGS, "--out", os.path.join(tmp, "h1.jsonl"),
+                     "--device", "cuda"], H1_TIMEOUT)
+    rows = [json.loads(ln) for ln in stdout.splitlines()
+            if ln.startswith("{")]
+    keys = list(h1_vs_coarse.ROW_KEYS + h1_vs_coarse.EXTRA_KEYS)
+    a24 = generate.laplace_3d(int(H1_ARGS[0]))
+    want = [CholeskySolver(a24, h1_vs_coarse.config(H1_ARGS[1], alpha),
+                           device="cuda").executor.chol_calls_per_factorize
+            for alpha in h1_vs_coarse.ALPHAS]
+    got = [r.get("k1_launches_per_factorize") for r in rows]
+    if not (len(rows) == len(h1_vs_coarse.ALPHAS)
+            and all(list(r) == keys and r["residual"] < 1e-3
+                    and r["device"] == card for r in rows)
+            and got == want):
+        raise AssertionError(f"h1_vs_coarse {' '.join(H1_ARGS)}: "
+                             f"{len(h1_vs_coarse.ALPHAS)} rows with the keys "
+                             f"{keys}, residual < 1e-3, the card {card!r} "
+                             f"and K1 launches per factorize {want} "
+                             f"expected: {rows}")
+    out["h1_vs_coarse"] = rows
+    out["k1_launches_per_alpha"] = {str(r["segment_alpha"]): n
+                                    for r, n in zip(rows, got)}
+
+    # calibrate_model at the main path's grid: its keys, every segment,
+    # the fitted constants and each variant's gates
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "calibration.json")
+        _, out["calibrate_process_s"] = _module_run(
+            CAL_CMD, [str(CAL_GRID), path, "--device", "cuda"],
+            CAL_TIMEOUT)
+        with open(path) as f:
+            art = json.load(f)
+    consts = [art["fitted"][c] for c in calibrate.COLUMNS]
+    signs = art["validation"]["signs"]
+    if not (list(art) == list(calibrate_model.ART_KEYS
+                              + calibrate_model.EXTRA_KEYS)
+            and art["segments"] == nseg and art["device"] == card
+            and all(v is None or v >= 0 for v in consts)
+            and list(signs) == list(calibrate_model.VARIANTS)
+            and all(s["gates"]["passed"] for s in signs.values())):
+        raise AssertionError(f"calibrate_model {CAL_GRID}: its keys, {nseg} "
+                             f"segments, the card {card!r}, fitted "
+                             f"constants >= 0 and not NaN (null: a rate at "
+                             f"no cost) and every variant's gates expected: "
+                             f"{art}")
+    out["calibrate_model"] = art
+
+    # eval: every line verifies on the card
+    stdout, out["eval_process_s"] = evaluation
+    lines = [json.loads(ln) for ln in stdout.splitlines()
+             if ln.startswith("{")]
+
+    def verified(ln):
+        if ln.get("driver") == "cholesky":
+            return (ln["factor_residual"] < 1e-3
+                    and ln["solve_residual"] < 1e-3
+                    and ln["device"].split(":")[0] == "cuda")
+        if ln.get("driver") == "trisolve":
+            return ln["verified"] and ln["device"].split(":")[0] == "cuda"
+        return ln.get("driver") == "baseline" and ln["trsv_verified"]
+    if not (len(lines) == EVAL_LINES and all(map(verified, lines))):
+        raise AssertionError(f"eval {' '.join(EVAL_ARGS)}: {EVAL_LINES} "
+                             f"verified lines on the card expected, none an "
+                             f"error line: {lines}")
+    out["eval"] = lines
+
+    out["segment_times"] = _segment_times(profiled, restored)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def _variant_solve(torch, np, name, ex, lx, b_l, x_ref, card):
@@ -2372,11 +2532,17 @@ def main() -> int:
     # ---- 15. the CLI ----------------------------------------------------
     print("cli", json.dumps(_cli_phase(np, card)))
 
-    # ---- 16. the multi-device tier in rank processes -------------------
+    # ---- 16. the multi-device tier in rank processes, with phase 21's
+    # eval beside it ------------------------------------------------------
     lref = ex.factor_values(solver.lx).cpu().numpy()
     x_fast = ex.solve_lower(solver.lx, b_l).cpu().numpy()
-    multi = _multi_device_phase(torch, np, solver, cfg, lref, b_l, bp,
-                                x_fast, simp, card)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        evaluation = pool.submit(_module_run, EVAL_CMD,
+                                 [*EVAL_ARGS, "--device", "cuda"],
+                                 EVAL_TIMEOUT)
+        multi = _multi_device_phase(torch, np, solver, cfg, lref, b_l, bp,
+                                    x_fast, simp, card)
+    evaluation = evaluation.result()
     print("multi-device phase", json.dumps(dict(
         plans_s=multi["plans_s"], launch_s=multi["launches"],
         phase_s=multi["phase_s"], card=card)))
@@ -2410,7 +2576,29 @@ def main() -> int:
         scale_test_process_s=large["scale_test_process_s"],
         k1_new_shapes=len(large["k1_checks"]), card=card)))
 
-    # ---- 21. result ----------------------------------------------------
+    # ---- 21. the sweep drivers, and the segment times of phases 17 and 19
+    sweep = _sweep_phase(evaluation, len(plan.segments),
+                         last["model"]["segments_measured_s"],
+                         attr["full_s"], card)
+    for ln in sweep["eval"]:
+        print("phase 21 eval", json.dumps(ln))
+    for r in sweep["h1_vs_coarse"]:
+        print("phase 21 h1_vs_coarse", json.dumps(r))
+    print("phase 21 calibrate_model", json.dumps(sweep["calibrate_model"]))
+    print("phase 21 segment times", json.dumps(sweep["segment_times"]))
+    print("phase 21", json.dumps(dict(
+        phase_s=sweep["phase_s"], eval_process_s=sweep["eval_process_s"],
+        h1_process_s=sweep["h1_process_s"],
+        calibrate_process_s=sweep["calibrate_process_s"],
+        segment_sum_ratio=sweep["segment_times"]["sum_ratio"],
+        segment_max_ratio=sweep["segment_times"]["max_ratio"],
+        segment_min_ratio=sweep["segment_times"]["min_ratio"],
+        segments_same_ranking=sweep["segment_times"]["same_ranking"],
+        segments_within_tol=sweep["segment_times"]["within_tol"],
+        all_signs_correct=sweep["calibrate_model"]["validation"][
+            "all_signs_correct"], card=card)))
+
+    # ---- 22. result ----------------------------------------------------
     print(card)
     k2_path = [r for r in k2 if r["shape"][2] <= 64]
     rank_k1 = [r["k1_checks"] for r in multi["runs"] if "k1_checks" in r]
@@ -2475,7 +2663,10 @@ def main() -> int:
                  per_factorize=large["line"]["k1_launches_per_factorize"],
                  plan=large["line"]["chol_calls_per_factorize"],
                  run=large["line"]["k1_launches_run"]),
-             phase20_shapes=large["k1_checks"]),
+             phase20_shapes=large["k1_checks"],
+             # phase 21: h1_vs_coarse's K1 launches per factorize, per
+             # segment_alpha (the factorize program's capture)
+             phase21_launches=sweep["k1_launches_per_alpha"]),
         dict(name="finalize_fused", route="cuda",
              source="parsy_bench_tpu_torch/csrc/finalize_fused.cu",
              replaces="parsy_bench_tpu/ops/pallas_kernels.py:235",

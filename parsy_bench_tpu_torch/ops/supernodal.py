@@ -1307,50 +1307,37 @@ class SupernodalExecutor(graphs.ProgramHost):
                          reps: int = 20) -> list[dict]:
         """Per-segment times, the counterpart of the JAX
         ``profile_segments`` (reference: the instrumented executors behind
-        TIMING/ANALYZE_THEORY, Cholesky_Perf_Modeling.h:29), on
-        ``factorize_segmented``'s programs at ``group=1``.
+        TIMING/ANALYZE_THEORY, Cholesky_Perf_Modeling.h:29), with its
+        records, on ``factorize_segmented``'s segments at ``group=1``.
 
-        Segment i is timed on pools factored through segment i-1: the
-        static pools are restored from a copy of that state, its program
-        runs ``reps`` times back to back (each run after the first applies
-        the segment again to its own output, the same work, as JAX's
-        ``run_reps`` does), ``iters`` times; then one run from the restored
-        state advances the copy.  ``median_s`` is per run: device time
-        between CUDA events on the card, host time on the CPU."""
-        iters, reps = int(iters), int(reps)
-        if iters < 1 or reps < 1:
-            raise ValueError(f"iters {iters} and reps {reps} must be >= 1")
-        self._load_a(a_data)
-        self._program("init", self._chain(0, 0, init=True)).run()
-        self._held.pop("pools", None)
-        state = [p.clone() for p in self._pools]
-
-        def restore():
-            for p, s in zip(self._pools, state):
-                p.copy_(s)
-
-        def run_reps():
-            for _ in range(reps):
-                prog.run()
+        Segment i is timed on pools factored through segment i-1, as
+        ``scripts/attribution.SegmentTimer`` times a program: each run
+        first restores the rows the segment's steps write, then runs the
+        segment; ``reps`` runs back to back, ``iters`` times, in turns with
+        a restore-only program whose median is subtracted.  ``median_s``
+        is per run: device time between CUDA events on the card (after a
+        device sleep that lets the host enqueue the runs first), host time
+        on the CPU.  The JAX executor instead runs the segment again on its
+        own output, which leaves NaN in the pools: on the card such runs
+        take the time of real ones in the same turns, but that protocol's
+        times missed the restored ones by more than 5 % in some segment
+        (``tools/segment_protocols.py``, PERF.md §7)."""
+        # imported here: the attribution module builds on this one
+        from parsy_bench_tpu_torch.scripts.attribution import SegmentTimer
+        timer = SegmentTimer(self, a_data, "profile_segments", int(iters),
+                             int(reps))
         out = []
         for lo, hi in self.group_bounds(1):
             seg = self.plan.segments[lo]
-            prog = self._segments_program(lo, hi)
-            restore()
-            prog.run()                     # warm: the capture at first use
-            times = []
-            for _ in range(iters):
-                restore()
-                times.append(graphs.elapsed_s(self.device, run_reps))
-            restore()
-            prog.run()
-            for s, p in zip(state, self._pools):
-                s.copy_(p)
+            timer.begin(lo)
+            prog = timer.program("segment", self._chain(lo, hi))
+            times, _ = timer.time({"segment": prog})
+            prog.run()      # the pools then hold the next segment's input
             out.append({"segment": lo, "steps": seg.nsteps,
                         "upd_buckets": len(seg.upd),
                         "fin_buckets": len(seg.fin),
                         "wslice": list(seg.wslice),
-                        "median_s": sorted(times)[len(times) // 2] / reps})
+                        "median_s": times["segment"]})
         return out
 
     # ------------------------------------------------------------ export

@@ -16,11 +16,12 @@
   the runs first), the host clock on the CPU.
 
   Why restore: JAX's ``run_reps`` (scripts/floor_r5.py:133-143,
-  scripts/fin_ablate.py:135-144) and the executors' ``profile_segments``
-  apply a segment again to its own output.  A finalize applied to a block
+  scripts/fin_ablate.py:135-144) and the JAX executor's
+  ``profile_segments`` apply a segment again to its own output.  A finalize applied to a block
   it has already factored can hand K1 a block that is not SPD, which K1
   turns into NaN, and runs on NaN need not take the time of real ones
-  (``reps_on_own_output`` reports whether the pools stay finite).
+  (``reps_on_own_output`` reports whether the pools stay finite).  The
+  port's ``profile_segments`` times its segments through this class.
 * ``profile``: one call under torch.profiler, with the primer and the
   retries that keep the card's profiles whole; ``chip_smoke.py``'s
   profiles go through it too.
@@ -171,8 +172,9 @@ class SegmentTimer:
 def reps_on_own_output(solver, device="cuda", reps=20) -> dict:
     """The pools after each segment's program ran ``reps`` times back to
     back from the segment's input state, each run on the previous run's
-    output, as ``profile_segments`` runs it (on an executor of its own):
-    the segments after whose runs some pool entry is not finite."""
+    output, as the JAX ``profile_segments`` runs it (on an executor of
+    its own): the segments after whose runs some pool entry is not
+    finite."""
     ex = own_executor(solver, device)
     ex._load_a(a_values(ex, solver))
     ex._program("init", ex._chain(0, 0, init=True)).run()

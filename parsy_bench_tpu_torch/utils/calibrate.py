@@ -3,8 +3,10 @@ of a real plan: the port's counterpart of ``collect`` and ``fit`` in
 ``scripts/calibrate_model.py``.
 
 The observations are ``SupernodalExecutor.profile_segments`` times (each
-segment's captured program replayed back to back, timed with CUDA events
-on the card), the features are ``perfmodel.segment_features``, and the fit
+segment's captured program run from its restored input, back to back,
+timed with CUDA events on the card, the restore's time subtracted; the
+JAX script's runs go on from their own output, NaN after a few), the
+features are ``perfmodel.segment_features``, and the fit
 is the same column-scaled non-negative least squares with the same folded
 columns: the finalize's flops, bytes and lanes share the update's rates.
 

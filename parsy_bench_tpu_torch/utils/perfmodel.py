@@ -34,24 +34,25 @@ from parsy_bench_tpu_torch.symbolic.splan import SupernodalPlan
 class ChipModel:
     """Throughputs and fixed costs of one card behind the port's captured
     programs: the least-squares fit (``utils/calibrate.fit``) of the
-    per-segment device times that ``profile_segments`` measured on the
+    per-segment device times that ``profile_segments`` measured (each
+    segment from its restored input, the restore subtracted) on the
     ``laplace_3d(48)`` plan (n = 110,592, ND, f32, ``update_delta="gather"``)
     in ``chip_smoke.py``'s phase 17, on an NVIDIA H100 80GB HBM3 with a
-    700 W power limit (R^2 0.995 over the plan's 34 segments; PERF.md §5
-    compares the fits of two runs).  A rate the fit left at zero cost is
-    ``inf``, a fixed cost ``0.0``.  Each bucket of a level step is a chain of dependent
-    device operations, so the per-bucket fixed costs (``upd_bucket_s``,
-    ``fin_bucket_s``) are what segmentation and the q ladder trade
-    against padding."""
+    700 W power limit (R^2 0.998 over the plan's 34 segments; PERF.md §5
+    compares the fits of several runs).  A rate the fit left at zero cost
+    is ``inf``, a fixed cost ``0.0``.  Each bucket of a level step is a
+    chain of dependent device operations, so the per-bucket fixed costs
+    (``upd_bucket_s``, ``fin_bucket_s``) are what segmentation and the q
+    ladder trade against padding."""
     name: str = "NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 17)"
     #: batched-product flops/s
-    mxu_flops: float = 25677066851501.42
+    mxu_flops: float = 17238378051455.73
     #: index-driven row gathers, rows/s
-    gather_rows: float = 158002803.7625743
+    gather_rows: float = 179922797.92783147
     #: row scatter-adds, rows/s (fitted at no cost)
     scatter_rows: float = float("inf")
     #: window slice and update bytes/s
-    stream_bytes: float = 413942389034.7053
+    stream_bytes: float = 425437503046.8483
     #: per batched-product lane (fitted at no cost)
     lane_s: float = 0.0
     #: per dependent step of the blocked Cholesky chain (fitted at no cost)
@@ -59,9 +60,9 @@ class ChipModel:
     #: per level step (fitted at no cost)
     step_s: float = 0.0
     #: per update bucket per level step
-    upd_bucket_s: float = 3.3486856595272915e-05
+    upd_bucket_s: float = 3.291219416163601e-05
     #: per finalize bucket per level step
-    fin_bucket_s: float = 4.955026946811417e-05
+    fin_bucket_s: float = 5.042531576024375e-05
 
 
 @dataclasses.dataclass

@@ -36,6 +36,12 @@ string turned to ``"cpu"`` and these stand-ins:
   (the scatter mode and the pools' row sums) and this module's counted
   kernel stand-ins and acted-out capture, its device key set to the card
   line's stand-in; ``scale_test`` (a real subprocess) at laplace_3d(8);
+* the sweep drivers (phase 21, real subprocesses) on the CPU: ``eval``
+  at laplace_3d(6) (beside phase 16's ranks, as on the card),
+  ``h1_vs_coarse`` at laplace_3d(8) with the counted
+  kernel stand-ins and acted-out capture (its K1 counts are then what
+  the card's would be) and ``calibrate_model`` at the main path's small
+  matrix, their device keys set to the card line's stand-in;
 * the attribution scripts (phase 19) run on the CPU at the main path's
   small matrix with 2 runs per sample; their profiles of whole calls
   (``scripts/attribution.device_ops``) count the kernel stand-ins' runs,
@@ -238,8 +244,10 @@ def main() -> int:
                  "K2_SHAPES", "DIST_GROUPS", "SHARDED_G", "DENSE_TOP_COLS",
                  "GPOOL_MB", "BENCH_CMD", "ATTR_REPS", "SOLVE_KS",
                  "LARGE_CMD", "LARGE_GRID", "SCALE_CMD", "SCALE_ARGS",
-                 "_multi_device_phase", "_last_slice_phase",
+                 "EVAL_CMD", "EVAL_ARGS", "H1_CMD", "H1_ARGS", "CAL_CMD",
+                 "CAL_GRID", "_multi_device_phase", "_last_slice_phase",
                  "_attribution_phase", "_reference_scale_phase",
+                 "_sweep_phase",
                  "_card", "_device_ops", "_profiled_ms"):
         if name not in ns:
             raise AssertionError(f"chip_smoke.py no longer defines {name}")
@@ -294,6 +302,27 @@ def main() -> int:
         "from parsy_bench_tpu_torch.scripts import scale_test as S; "
         f"S._line = lambda o: print(json.dumps(dict(o, device={card!r})), "
         "flush=True); S.main(sys.argv[1:])")
+    # the sweep drivers on the CPU: eval at laplace_3d(6) (its nine lines),
+    # h1_vs_coarse at laplace_3d(8), calibrate_model at the main path's
+    # small matrix (phase 21 holds its segments to phase 4's plan); the
+    # device key of h1_vs_coarse's rows and of the artifact set to the
+    # card line's stand-in
+    ns["EVAL_ARGS"] = ("gen:laplace3d:6", "--iters", "1", "--trisolve",
+                       "--baselines")
+    ns["H1_ARGS"] = ("8", "nd")
+    ns["H1_CMD"] = (
+        "-c", "import sys; sys.path.insert(0, 'tools'); "
+        "import smoke_rehearsal as R; R._stub_kernels(); "
+        "R.graphs.Program.run = R._program_run; "
+        "from parsy_bench_tpu_torch.scripts import h1_vs_coarse as H; "
+        f"row = H.row; H.row = lambda *a: dict(row(*a), device={card!r}); "
+        "H.main(sys.argv[1:])")
+    ns["CAL_GRID"] = 12
+    ns["CAL_CMD"] = (
+        "-c", "import sys; "
+        "from parsy_bench_tpu_torch.scripts import calibrate_model as C; "
+        f"run = C.run; C.run = lambda *a: dict(run(*a), device={card!r}); "
+        "C.main(sys.argv[1:])")
     return ns["main"]()
 
 
