@@ -113,7 +113,10 @@ Phases, each of which raises on failure (nothing is caught):
    with ``update_delta="scatter"`` (its own analyze); K1 counted as in
    phase 4; the captured ``factorize`` within 1e-6 of the pool scale of
    ``_factorize_eager`` (atomics: not bit-equal); phase 4's gates; the
-   capture seconds, the replay median and the device busy ms;
+   capture seconds, the replay median and the device busy ms; then the
+   scaling driver's G = 1 row on this solver (``scripts/scaling.py``
+   ``single_row``: ``factorize_segmented(group=8)`` first call, median of
+   3, ``solve_lower`` median of 3, busy ms), kept for phase 16;
 12. ``TriangularSolver`` at n = 110,592 on phase 4's factor (f32):
    supernodal, wavefront and coarsened, each with its analyze seconds,
    levels or steps, table MB (and ``prepare_solve_pools``' seconds),
@@ -136,14 +139,16 @@ Phases, each of which raises on failure (nothing is caught):
 16. the multi-device tier (``parallel/``) in G rank processes
    (``parallel/comm.launch``), all on the first card with the gloo
    backend (NCCL with one card per rank only where the machine has G
-   cards), on phase 4's matrix and ordering: ``DistExecutor`` at
-   G = 4 and 2 (``DIST_GROUPS``) with its own ``build_dist_plan``, and
+   cards; ``parallel/comm.rank_layout``), on phase 4's matrix and
+   ordering: ``DistExecutor`` at G = 8, 4 and 2 (``DIST_GROUPS``) with
+   its own ``build_dist_plan``, and
    ``ShardedSupernodalExecutor`` at G = 4 on a plan built with
    ``num_partitions=4``, each held against phase 4's single-device factor
    (values within 1e-4; ``solve_lower`` with b = L*1 and ``solve_spd``
    with b = A*1 within 1e-3 of x = 1, the sharded ``solve_lower`` within
    1e-4 of phase 4's; ``factorize_segmented(group=8)`` within 1e-6 of the
-   pool scale of ``factorize``; pool bytes per rank below the
+   pool scale of ``factorize`` at G = 4 and 2 (``SEGMENTED_GROUPS``);
+   pool bytes per rank below the
    single-device pools'), ``ShardedSimplicialExecutor`` at G = 4 on phase
    14's plan against its factor (within 1e-4 of the scale); every rank's
    factorize launched K1 once per chol call its plan implies (printed per
@@ -151,12 +156,19 @@ Phases, each of which raises on failure (nothing is caught):
    (P, c) its factorize gave K1, at phase 3's bars
    (``parallel/runs._check_k1``); the all_reduce payload of one
    ``DistExecutor`` factorize equal to ``DistPlan.psum_bytes_per_step()``'s
-   model; the factorize median of 3 after one first call and the solve
-   medians (host clock, synchronized), each rank's device busy ms of its
-   first factorize (torch.profiler in the rank).  A rank that raises or
-   hangs fails the phase.  These walls come from host-staged collectives among ranks
-   that share one card: no multi-GPU figure.  Phase 21's ``eval`` runs
-   beside this phase;
+   model; the factorize median of ``DIST_REPS`` (3; 1 at G = 8, and 1
+   for the simplicial job, ``SIMPLICIAL_REPS``; ``DistExecutor``:
+   ``factorize_segmented(8)``, the scaling driver's) after one first call
+   and the solve medians (host clock, synchronized), each rank's device
+   busy ms of its first factorize (``scripts/attribution.profile`` in the
+   rank: primed, retried by all ranks together).  Then the ``scaling``
+   line: the scaling driver's rows at G = 1 (phase 11), 2, 4 and 8 built
+   by its own functions from the ranks' records (``_scaling_rows``),
+   gated on their keys (the JAX row's, then the port's), the ring bytes
+   at every G and the pool bytes per device falling strictly with G.  A
+   rank that raises or hangs fails the phase.  These walls come from
+   host-staged collectives among ranks that share one card: no multi-GPU
+   figure.  Phase 21's ``eval`` runs beside this phase;
 17. the last single-device slice on phase 4's matrix: a second analyze
    with ``dense_top_cols=DENSE_TOP_COLS`` and ``verify=True`` (its
    ``verify_s``; ``verify_plan``'s stats on it and on phase 4's plan; the
@@ -177,7 +189,11 @@ Phases, each of which raises on failure (nothing is caught):
    performance model fitted on ``profile_segments`` (``utils/calibrate``:
    constants, R^2, each segment's relative error, ``factorize_cost``
    under the committed ``ChipModel`` and under the fit against phase 4's
-   median, and the fit over the committed constants); peak memory.
+   median, and the fit over the committed constants); then the
+   calibrate driver (``scripts/calibrate.py``) in this process: its
+   seven ceilings, each beside ``ChipModel``'s field as measured /
+   fitted, committed and this run's fit (``_calibrate_line``; reported,
+   gated only on every value finite and > 0); peak memory.
 18. the bench (``python -m parsy_bench_tpu_torch.bench``, the port's
    ``bench.py``) as a subprocess on the card (``BENCH_CMD``, at most
    900 s: its factor-residual gate is a host-side scipy L L^T at
@@ -285,8 +301,16 @@ CLI_RUNS = (("cholesky", "gen:laplace3d:24", "--verify", "--profile"),
              "simplicial", "--schedule", "coarsened"))
 #: phase 16: the group sizes of ``DistExecutor`` and of the sharded
 #: executors (ranks share the card unless it has one card per rank)
-DIST_GROUPS = (4, 2)
+DIST_GROUPS = (8, 4, 2)
 SHARDED_G = 4
+#: the timed repeats of each ``DistExecutor`` job and of the sharded
+#: simplicial one, and the group sizes whose job checks
+#: ``factorize_segmented``: G = 8's repeats and check and the simplicial
+#: job's repeats are cut to keep the script inside its time limit (the
+#: scaling driver's own run keeps the full protocol at every G)
+DIST_REPS = {8: 1, 4: 3, 2: 3}
+SIMPLICIAL_REPS = 1
+SEGMENTED_GROUPS = (4, 2)
 #: phase 17: the dense top's column budget (the width at which the JAX
 #: package measured its dense top) and the aligned-operand pool's budget
 #: in MB (the plan's default ``gpool_mb``)
@@ -1224,6 +1248,7 @@ def _scatter_phase(torch, np, kernels, a, cfg, card):
     """Phase 11 (the module docstring): the scatter update mode at the
     main path's size, its own analyze and captured ``factorize``."""
     from parsy_bench_tpu_torch import CholeskySolver
+    from parsy_bench_tpu_torch.scripts import scaling
     scfg = cfg.replace(update_delta="scatter")
     t0 = time.perf_counter()
     solver = CholeskySolver(a, scfg)
@@ -1271,6 +1296,10 @@ def _scatter_phase(torch, np, kernels, a, cfg, card):
         raise AssertionError(f"scatter mode: solve(A*1) residual {res:.3e}")
     prof = _device_ops(torch, lambda: ex.factorize(data), K1_NAMES)
     med = times[2]
+    # the scaling driver's G = 1 row (its configuration), for phase 16
+    t0 = time.perf_counter()
+    g1 = scaling.single_row(solver, torch.device("cuda"))
+    g1_s = time.perf_counter() - t0
     return dict(
         update_delta=scfg.update_delta, n=int(a.n), analyze_s=analyze_s,
         chol_calls_per_factorize=expected, table_mb=ex.table_bytes / 1e6,
@@ -1284,7 +1313,7 @@ def _scatter_phase(torch, np, kernels, a, cfg, card):
         idle_share_of_median_wall=1 - prof["busy_ms"] / (med * 1e3),
         captured_vs_eager_max_abs_diff=diff, captured_vs_eager_bit_equal=bit,
         pool_scale=pscale, solve_lower_max_err=err, solve_rel_residual=res,
-        card=card)
+        scaling_g1_row=g1, scaling_g1_s=g1_s, card=card)
 
 
 def _trisolve(torch, np, name, l, cfg, card):
@@ -1424,15 +1453,6 @@ def _simplicial_phase(torch, np, kernels, generate, card):
         by_name=prof["by_name"], card=card), solver
 
 
-def _rank_layout(torch, G):
-    """(backend, devices) of G ranks: NCCL with one card per rank where
-    the machine has G cards, else gloo with every rank on the first card
-    (NCCL refuses two ranks on one GPU)."""
-    if torch.cuda.device_count() >= G:
-        return "nccl", [torch.device("cuda", r) for r in range(G)]
-    return "gloo", [torch.device("cuda", 0)] * G
-
-
 def _psum_model(plan, recs):
     """The measured all_reduce payload of one factorize against
     ``DistPlan.psum_bytes_per_step()`` (which models each rank's ring
@@ -1461,10 +1481,12 @@ def _rank_summary(recs):
         init_s=[r["init_s"] for r in recs],
         job_s=[r["job_s"] for r in recs],
         first_factorize_s=[r["first_factorize_s"] for r in recs],
-        factorize_median_s=r0["factorize_s"][1],
+        factorize_median_s=statistics.median(r0["factorize_s"]),
         factorize_s_rank0=r0["factorize_s"],
-        factorize_median_s_by_rank=[r["factorize_s"][1] for r in recs],
-        solve_median_s={k: v[1] for k, v in r0["solve_s"].items()},
+        factorize_median_s_by_rank=[statistics.median(r["factorize_s"])
+                                    for r in recs],
+        solve_median_s={k: statistics.median(v)
+                        for k, v in r0["solve_s"].items()},
         k1_launches_per_factorize_by_rank=[r["k1_launches"] for r in recs],
         device_busy_ms_by_rank=[r.get("device_busy_ms") for r in recs])
 
@@ -1491,11 +1513,13 @@ def _check_rank_k1(recs):
 
 
 def _multi_device_phase(torch, np, solver, cfg, lref, b_l, bp, x_fast,
-                        simp, card):
+                        simp, g1_row, card):
     """Phase 16 (the module docstring): the multi-device tier in rank
     processes on the card, held against phase 4's single-device factor
-    and phase 14's simplicial factor."""
+    and phase 14's simplicial factor; then the scaling rows, G = 1 from
+    phase 11 (``g1_row``)."""
     from parsy_bench_tpu_torch.parallel import comm, runs
+    from parsy_bench_tpu_torch.scripts import scaling
     from parsy_bench_tpu_torch.symbolic.dplan import build_dist_plan
     from parsy_bench_tpu_torch.symbolic.splan import build_supernodal_plan
     t_phase = time.perf_counter()
@@ -1508,21 +1532,26 @@ def _multi_device_phase(torch, np, solver, cfg, lref, b_l, bp, x_fast,
         solver.ap, solver.parent, solver.cc, None,
         cfg.replace(num_partitions=SHARDED_G))
     plans_s = time.perf_counter() - t0
+    # the timed factorize is the scaling driver's, factorize_segmented(8)
     jobs = {G: [("dist", dict(plan=dplans[G], a_data=data, dtype="float32",
-                              lpat=solver.lpat, solves=solves, segmented=8,
-                              reps=3, profile=True))]
+                              lpat=solver.lpat, solves=solves,
+                              segmented=8 if G in SEGMENTED_GROUPS else None,
+                              reps=DIST_REPS[G], profile=True,
+                              time_group=scaling.GROUP))]
             for G in DIST_GROUPS}
     jobs[SHARDED_G] += [
         ("sharded_supernodal", dict(plan=splan, a_data=data, dtype="float32",
                                     solves=solves, reps=3, profile=True)),
         ("sharded_simplicial", dict(plan=simp.plan, a_data=simp.ap.data,
-                                    dtype="float32", reps=3, profile=True))]
+                                    dtype="float32", reps=SIMPLICIAL_REPS,
+                                    profile=True))]
     single_pool_bytes = solver.plan.pool_elems() * 4
     lscale = float(np.abs(lref).max())
     simp_ref = simp.lx.cpu().numpy()
     out = dict(plans_s=plans_s, launches={}, card=card)
+    dist_recs = {}
     for G in sorted(jobs, reverse=True):
-        backend, devices = _rank_layout(torch, G)
+        backend, devices = comm.rank_layout(G, "cuda")
         print(f"multi-device: G = {G}, backend {backend}, rank devices "
               f"{[str(d) for d in devices]}")
         t0 = time.perf_counter()
@@ -1535,20 +1564,22 @@ def _multi_device_phase(torch, np, solver, cfg, lref, b_l, bp, x_fast,
             r0 = recs[0]
             if name == "dist":
                 plan = dplans[G]
+                dist_recs[G] = recs
                 rec["k1_checks"] = _check_rank_k1(recs)
                 err = float(np.abs(r0["values"] - lref).max())
                 lower = float(np.abs(r0["solve_lower"] - 1).max())
                 spd = float(np.abs(r0["solve_spd"] - 1).max())
-                seg = max(r["segmented_max_diff"] / r["pool_scale"]
-                          for r in recs)
+                seg = (max(r["segmented_max_diff"] / r["pool_scale"]
+                           for r in recs) if G in SEGMENTED_GROUPS
+                       else None)
                 if not (err < 1e-4 and lower < 1e-3 and spd < 1e-3
-                        and seg <= 1e-6):
+                        and (seg is None or seg <= 1e-6)):
                     raise AssertionError(
                         f"DistExecutor G = {G}: factor values off the "
                         f"single-device factor by {err:.3e} (bar 1e-4), "
                         f"max|1 - x| {lower:.3e} (solve_lower, b = L*1) "
                         f"and {spd:.3e} (solve_spd, b = A*1; bar 1e-3), "
-                        f"factorize_segmented(8) off by {seg:.3e} of the "
+                        f"factorize_segmented(8) off by {seg} of the "
                         f"pool scale (bar 1e-6)")
                 if not r0["pool_bytes"] < single_pool_bytes:
                     raise AssertionError(
@@ -1598,8 +1629,31 @@ def _multi_device_phase(torch, np, solver, cfg, lref, b_l, bp, x_fast,
                            factor_max_abs_err=err, factor_scale=scale)
             print("multi-device", json.dumps(rec))
             out.setdefault("runs", []).append(rec)
+    out["scaling"] = _scaling_rows(solver, dplans, dist_recs, g1_row, card)
+    print("scaling", json.dumps(out["scaling"]))
     out["phase_s"] = time.perf_counter() - t_phase
     return out
+
+
+def _scaling_rows(solver, dplans, dist_recs, g1_row, card):
+    """The scaling driver's rows (``scripts/scaling.py``) from phase 11's
+    G = 1 row and the ``DistExecutor`` ranks' records, through the
+    driver's own functions; gated on the rows' keys (the JAX row's, then
+    the port's), the ring bytes at every G (``scaling.rank_row`` raises)
+    and the pool bytes per device falling strictly with G."""
+    from parsy_bench_tpu_torch.scripts import scaling
+    rows = [g1_row] + [scaling.rank_row(dplans[G], solver, dist_recs[G])
+                       for G in sorted(dist_recs)]
+    t1 = g1_row["factorize_s"]
+    rows = [scaling.with_efficiency(r, t1) for r in rows]
+    keys = scaling.ROW_KEYS + scaling.EXTRA_KEYS
+    pools = [r["pool_bytes_per_device"] for r in rows]
+    if not (all(tuple(r) == keys for r in rows)
+            and all(p > q for p, q in zip(pools, pools[1:]))):
+        raise AssertionError(f"scaling rows: keys {[list(r) for r in rows]}"
+                             f" (want {list(keys)}), pool bytes per device "
+                             f"{pools} (want strictly falling with G)")
+    return dict(rows=rows, card=card)
 
 
 def _module_run(cmd, args, timeout):
@@ -2125,10 +2179,33 @@ def _last_slice_phase(torch, np, kernels, a, cfg, solver, analyze_s, med,
         measured_factorize_median_s=med,
         segments_measured_sum_s=sum(r["median_s"] for r in rows))
     print("phase 17 model", json.dumps(out["model"]))
+    out["calibrate"] = _calibrate_line(committed, chip_fit, card)
+    print("phase 17 calibrate", json.dumps(out["calibrate"]))
     out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
     out["phase_s"] = time.perf_counter() - t_phase
     return out
+
+
+def _calibrate_line(committed, fit, card):
+    """The calibrate driver's ceilings (``scripts/calibrate.py``, in this
+    process) beside ``ChipModel``'s fields, committed and this run's fit,
+    each as measured / fitted.  Reported, not gated, but for one gate:
+    every measured value finite and above 0."""
+    import math
+
+    from parsy_bench_tpu_torch.scripts import calibrate
+    t0 = time.perf_counter()
+    got = calibrate.run("cuda")
+    run_s = time.perf_counter() - t0
+    vals = {k: got[k] for k in calibrate.FIELDS}
+    if not all(math.isfinite(v) and v > 0 for v in vals.values()):
+        raise AssertionError(f"calibrate: a ceiling not finite and > 0: "
+                             f"{vals}")
+    return dict(measured=vals, committed=calibrate.beside(vals, committed),
+                this_run_fit=calibrate.beside(vals, fit),
+                checksums=got["checksums"], device=got["device"],
+                run_s=run_s, card=card)
 
 
 def main() -> int:
@@ -2541,7 +2618,8 @@ def main() -> int:
                                  [*EVAL_ARGS, "--device", "cuda"],
                                  EVAL_TIMEOUT)
         multi = _multi_device_phase(torch, np, solver, cfg, lref, b_l, bp,
-                                    x_fast, simp, card)
+                                    x_fast, simp, scatter["scaling_g1_row"],
+                                    card)
     evaluation = evaluation.result()
     print("multi-device phase", json.dumps(dict(
         plans_s=multi["plans_s"], launch_s=multi["launches"],

@@ -11,7 +11,7 @@ its own ``Group``, and ``Group.psum`` is an in-place
   CUDA tensors when ranks share a card (gloo stages a CUDA tensor's
   reduction through the host); ``"nccl"`` only with one card per rank
   (NCCL refuses two ranks on one GPU).  Nothing switches backend or device
-  on its own.
+  on its own: ``rank_layout`` is where a caller picks them.
 * The ranks meet through a ``file://`` store in a new temporary directory,
   so that parallel test processes never contend for a TCP port.
 * The rank function and its arguments travel by pickle: the function by
@@ -91,6 +91,20 @@ def group_device(group: Group, device) -> torch.device:
     if dev != group.device:
         raise ValueError(f"executor on {dev}, its group on {group.device}")
     return dev
+
+
+def rank_layout(size: int, device) -> tuple:
+    """(backend, devices) of ``size`` ranks for work the caller asked to
+    run on ``device``: on the CPU gloo with every rank on ``"cpu"``; on a
+    card NCCL with one card per rank where the machine has ``size`` cards,
+    else gloo with every rank on the first card (NCCL refuses two ranks on
+    one GPU).  A CUDA device raises where there is none."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return "gloo", [torch.device("cpu")] * size
+    if torch.cuda.device_count() >= size:
+        return "nccl", [torch.device("cuda", r) for r in range(size)]
+    return "gloo", [torch.device("cuda", 0)] * size
 
 
 def _check_layout(size, backend, devices):

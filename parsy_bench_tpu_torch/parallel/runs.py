@@ -1,9 +1,13 @@
 """Rank programs of the multi-device tier: what each rank of a
-``comm.launch`` runs for the tests and for ``chip_smoke.py``.
+``comm.launch`` runs for the tests, for ``chip_smoke.py`` and for the
+scaling driver (``scripts/scaling.py``).
 
 Each ``run_*`` builds one executor in the calling rank and factorizes
-once with the kernels' launch counts and the group's ``psum`` counts at
-0 before (profiled on a card where the job asks).  That factorize also
+with the kernels' launch counts and the group's ``psum`` counts at 0
+before the call; where the job asks, through the one profiler
+(``scripts/attribution.profile``: an unprofiled call, then the primed
+profile, retried by all ranks together), with the counts reset before
+each call, so that they are one factorize's.  That factorize also
 records the (P, c) of every batch ``chol_inverse`` (K1 on a card) gets;
 afterwards K1 is held against its plain version at each of those shapes
 (``_check_k1``).  Then the rank runs what the job asks (factor values,
@@ -24,8 +28,10 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from parsy_bench_tpu_torch.ops import dense, kernels, supernodal
+from parsy_bench_tpu_torch.scripts import attribution
 
 
 def _jax_free() -> bool:
@@ -48,22 +54,29 @@ def _timed(device, fn):
     return time.perf_counter() - t0, out
 
 
-def _profiled(device, fn):
-    """(summed device time (ms) of one call's CUDA operations under
-    torch.profiler, or None where it recorded none: not measured; the
-    call's result).  The device-side marks of ``record_function`` scopes
-    (the executors' ``supernodal.SCOPES``) are spans over those
-    operations, not operations: they are left out."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize(device)
-    us = sum(getattr(e, "device_time_total", None)
-             or getattr(e, "cuda_time_total", 0) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False))
-    return (us / 1e3 if us > 0 else None), out
+def _profiled(group, fn):
+    """(busy ms of the last call of ``fn``, the profile's host ms,
+    profiles taken, the last call's result): ``attribution.profile``, with
+    its unprofiled first call, its primer and its retries, which the ranks
+    take together (``fn`` meets the other ranks in ``psum``s).  Busy is
+    the summed time of the call's operations (``attribution._work``: on
+    the card their device time, without the primers and the device-side
+    marks of ``record_function`` scopes; on the CPU the host time of the
+    top-level operations); None where there were none: not measured."""
+    out = []
+
+    def agree(ok):
+        t = torch.tensor([int(ok)], device=group.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+        return bool(t.item())
+
+    def call():
+        out[:] = [fn()]
+
+    evs, wall_ms, tries = attribution.profile(
+        call, group.device, agree=agree if group.size > 1 else None)
+    ms = sum(m for _, m in attribution._work(evs, group.device))
+    return (ms if ms > 0 else None), wall_ms, tries, out[0]
 
 
 @contextlib.contextmanager
@@ -135,34 +148,55 @@ class _Record(dict):
 
 
 def _first_factorize(group, rec, ex, a_data, profile):
-    """One factorize with every count at 0 before, profiled with
-    ``profile`` on a card: its counts, its chol batch shapes, its host
-    seconds (the profiler's cost included) and its device busy ms into
-    ``rec``; then K1 checked at those shapes."""
+    """The rank's first factorize, with every count at 0 before it: its
+    counts, its chol batch shapes and its host seconds into ``rec``; with
+    ``profile`` it goes through ``_profiled``, which calls it unprofiled
+    and then profiled (again on a retry), so the counts are reset before
+    each call and are the profiled call's, and its busy ms go into
+    ``rec`` too (on the CPU host ms, as ``host_busy_ms``).  Then K1
+    checked at those shapes."""
     dev = group.device
-    kernels.reset_launch_counts()
-    group.reset_counts()
+    secs = []
     with _chol_shapes() as shapes:
-        if profile and dev.type == "cuda":
-            t, (busy, pools) = _timed(dev, lambda: _profiled(
-                dev, lambda: ex.factorize(a_data)))
-            rec["device_busy_ms"] = busy
-        else:
+        def once():
+            kernels.reset_launch_counts()
+            group.reset_counts()
+            shapes.clear()
             t, pools = _timed(dev, lambda: ex.factorize(a_data))
-    rec.update(first_factorize_s=t,
+            secs.append(t)
+            return pools
+
+        if profile:
+            busy, wall_ms, tries, pools = _profiled(group, once)
+            # on the CPU the profile reads host time
+            rec["device_busy_ms" if dev.type == "cuda"
+                else "host_busy_ms"] = busy
+            rec.update(profiled_wall_ms=wall_ms, profiles_taken=tries)
+        else:
+            pools = once()
+    rec.update(first_factorize_s=secs[0],
                k1_launches=kernels.cholesky_inverse_cuda.launches,
                psum_calls=group.calls, psum_bytes=group.nbytes,
                k1_checks=_check_k1(dev, ex.dtype, shapes, group.rank))
     return pools
 
 
-def _repeats(group, rec, ex, a_data, pools, solves, reps):
-    """``reps`` timed factorizes and solves (sorted host seconds)."""
+def _repeats(group, rec, ex, a_data, pools, solves, reps, time_group=None):
+    """``reps`` timed factorizes (``factorize_segmented(a_data,
+    time_group)`` where ``time_group`` is given) and solves (sorted host
+    seconds)."""
     dev = group.device
+
+    def fact():
+        if time_group is None:
+            return ex.factorize(a_data)
+        return ex.factorize_segmented(a_data, time_group)
+
     if reps:
-        rec["factorize_s"] = sorted(
-            _timed(dev, lambda: ex.factorize(a_data))[0]
-            for _ in range(reps))
+        rec["factorize_s"] = sorted(_timed(dev, fact)[0]
+                                    for _ in range(reps))
+        rec["timed"] = ("factorize" if time_group is None
+                        else f"factorize_segmented({time_group})")
         rec["solve_s"] = {
             name: sorted(_timed(dev, lambda: getattr(ex, name)(pools, b))[0]
                          for _ in range(reps))
@@ -170,11 +204,13 @@ def _repeats(group, rec, ex, a_data, pools, solves, reps):
 
 
 def run_dist(group, plan, a_data, dtype="float32", lpat=None, solves=None,
-             segmented=None, reps=0, profile=False) -> dict:
+             segmented=None, reps=0, profile=False, time_group=None) -> dict:
     """``DistExecutor`` in this rank: factorize; with ``lpat`` the factor
     values; each of ``solves`` (name -> b: ``solve_lower``,
     ``solve_upper``, ``solve_spd``); with ``segmented`` the grouped
-    factorize against ``factorize`` (max |difference|, pool scale)."""
+    factorize against ``factorize`` (max |difference|, pool scale); the
+    timed repeats of ``factorize``, or of ``factorize_segmented(a_data,
+    time_group)`` where ``time_group`` is given (the scaling driver's)."""
     from parsy_bench_tpu_torch.parallel.dist import DistExecutor
     solves = solves or {}
     init_s, ex = _timed(group.device, lambda: DistExecutor(
@@ -194,7 +230,7 @@ def run_dist(group, plan, a_data, dtype="float32", lpat=None, solves=None,
         rec["pool_scale"] = max(float(p.abs().max()) for p in pools)
     for name, b in solves.items():
         rec.put(name, getattr(ex, name)(pools, b))
-    _repeats(group, rec, ex, a_data, pools, solves, reps)
+    _repeats(group, rec, ex, a_data, pools, solves, reps, time_group)
     return rec
 
 

@@ -202,7 +202,7 @@ def reps_on_own_output(solver, device="cuda", reps=20) -> dict:
 
 
 # ------------------------------------------------------------ profiles
-def profile(fn, device, accept=None):
+def profile(fn, device, accept=None, agree=None):
     """(events, host ms of the synchronized call, profiles taken) of one
     call of ``fn`` under torch.profiler (CUDA activity on the card only),
     after one unprofiled call.
@@ -215,7 +215,9 @@ def profile(fn, device, accept=None):
     shows none of them (so may have lost some of ``fn``'s), or whose
     events ``accept`` refuses, is taken again, up to three times in all.
     Where the last shows no primer it raises; where ``accept`` refuses it,
-    it is returned."""
+    it is returned.  Processes whose ``fn`` meets in collectives must call
+    it as often as each other: ``agree`` turns this process's verdict on a
+    profile into the group's (all keep it only where all would)."""
     from torch.profiler import ProfilerActivity, profile as _profiler
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -237,7 +239,10 @@ def profile(fn, device, accept=None):
         primed = device.type != "cuda" or any(
             PRIMER_NAME in e.name for e in evs
             if e.device_type == DeviceType.CUDA)
-        if primed and (accept is None or accept(evs)):
+        ok = primed and (accept is None or accept(evs))
+        if agree is not None:
+            ok = agree(ok)
+        if ok:
             break
     if not primed:
         raise AssertionError(f"torch.profiler lost all {PRIMER_OPS} primer "

@@ -241,13 +241,14 @@ def main() -> int:
     ns = {"__name__": "chip_smoke_rehearsal", "__file__": path}
     exec(compile(src, path, "exec"), ns)
     for name in ("SIMPLICIAL_GRID", "CLI_RUNS", "K1_SHAPES", "K1_SMALL",
-                 "K2_SHAPES", "DIST_GROUPS", "SHARDED_G", "DENSE_TOP_COLS",
+                 "K2_SHAPES", "DIST_GROUPS", "SHARDED_G", "DIST_REPS",
+                 "SIMPLICIAL_REPS", "SEGMENTED_GROUPS", "DENSE_TOP_COLS",
                  "GPOOL_MB", "BENCH_CMD", "ATTR_REPS", "SOLVE_KS",
                  "LARGE_CMD", "LARGE_GRID", "SCALE_CMD", "SCALE_ARGS",
                  "EVAL_CMD", "EVAL_ARGS", "H1_CMD", "H1_ARGS", "CAL_CMD",
                  "CAL_GRID", "_multi_device_phase", "_last_slice_phase",
                  "_attribution_phase", "_reference_scale_phase",
-                 "_sweep_phase",
+                 "_sweep_phase", "_scaling_rows", "_calibrate_line",
                  "_card", "_device_ops", "_profiled_ms"):
         if name not in ns:
             raise AssertionError(f"chip_smoke.py no longer defines {name}")
