@@ -61,6 +61,12 @@ class CholeskySolver:
 
     def __init__(self, a: CSC, config: SolverConfig | None = None, *,
                  device="cuda", fused_finalize: bool = False):
+        """Analyze ``a``'s pattern (its lower half when ``a`` is not
+        lower-half).  Besides the ordering and the plan, the analysis fixes
+        the value map: where each entry of the permuted matrix ``self.ap``
+        lies in ``a.data``, kept on the device.  ``a`` may not store an
+        entry twice (``ValueError``).  A later ``factorize(a)`` must carry
+        this pattern; its values are gathered on the device by the map."""
         self.device = resolve_device(device)
         self.config = config or SolverConfig()
         if self.config.tier not in ("supernodal", "simplicial"):
@@ -85,12 +91,12 @@ class CholeskySolver:
         fill_perm = compute_ordering(a, self.config.ordering,
                                      self.config.given_perm)
         _mark("ordering_s")
-        ap1 = a.permute(fill_perm)
+        ap1 = _entry_ids(a).permute(fill_perm)
         parent1 = etree(ap1)
         cc1 = col_counts(ap1, parent1)
         post = postorder(parent1, weights=cc1)
         self.perm = fill_perm[post]
-        self.ap = ap1.permute(post)
+        self._set_value_map(ap1.permute(post))
         self.parent = etree(self.ap)
         self.cc = col_counts(self.ap, self.parent)
         _mark("etree_s")
@@ -114,12 +120,58 @@ class CholeskySolver:
             _mark("plan_s")
             self.executor = SimplicialExecutor(self.plan, self.config.dtype,
                                                self.device)
+        self._vmap_dev = self._vmap_dev.to(self.device)
         _mark("executor_init_s")
         self.lx = None
         self._spd_ok = None
         # scatter helper: x[perm[r]] = xp[r]
         self._inv = np.empty(a.n, dtype=np.int64)
         self._inv[self.perm] = np.arange(a.n)
+
+    def _set_value_map(self, ap_ids: CSC) -> None:
+        """``self.ap`` and the value map from the analysed pattern's entry
+        ids (``_entry_ids``) permuted as ``self.perm`` permutes ``self.a``:
+        ``self.a.permute(self.perm).data == self.a.data[vmap]``.  The map
+        (``_vmap_dev``, int32) goes to the device once the executor has
+        checked it; ``factorize(a)`` gathers ``a``'s values with it there.
+        An entry stored twice would sum two ids into one: the map is then
+        no permutation of ``0..nnz-1``, and a ``ValueError`` says so."""
+        nnz = self.a.nnz
+        vmap = ap_ids.data.astype(np.int64) - 1
+        if (len(vmap) != nnz
+                or not np.all(np.bincount(vmap, minlength=nnz) == 1)):
+            raise ValueError("a stores an entry twice: duplicate (row, col) "
+                             "entries are not canonical CSC input")
+        self.ap = CSC(ap_ids.n, ap_ids.indptr, ap_ids.indices,
+                      self.a.data[vmap], ap_ids.coords)
+        self._vmap_dev = torch.from_numpy(vmap.astype(np.int32))
+
+    def _gather_values(self, a: CSC):
+        """``a``'s values in ``self.ap``'s order: ``a.data`` copied to the
+        device as it is, then one gather by the map fixed at analysis.
+        ``a`` must carry the analysed pattern, the very arrays or equal
+        ones; an ``a`` that is not lower-half is first cut to its lower
+        half, as ``__init__`` cuts it.  Any other pattern raises
+        ``ValueError``."""
+        same = self._is_analysed_pattern(a)
+        if not same and not a.is_lower():
+            a = a.lower_half()
+            same = self._is_analysed_pattern(a)
+        if not same:
+            raise ValueError("a's pattern is not the analysed one "
+                             f"(n={self.a.n}, nnz={self.a.nnz})")
+        if len(a.data) != len(self._vmap_dev):
+            raise ValueError(f"expected {len(self._vmap_dev)} A values, got "
+                             f"{len(a.data)}")
+        vals = torch.as_tensor(np.ascontiguousarray(a.data)).to(
+            device=self.device, dtype=self.executor.dtype)
+        return vals.index_select(0, self._vmap_dev)
+
+    def _is_analysed_pattern(self, a: CSC) -> bool:
+        pa = self.a
+        return ((a.indptr is pa.indptr and a.indices is pa.indices)
+                or (np.array_equal(a.indptr, pa.indptr)
+                    and np.array_equal(a.indices, pa.indices)))
 
     @property
     def lpat(self):
@@ -133,20 +185,27 @@ class CholeskySolver:
     # ------------------------------------------------------------ numeric
     def factorize(self, a: CSC | None = None,
                   check_spd: bool = True) -> "CholeskySolver":
-        """Numeric factorization; ``a`` may carry new values on the same
-        pattern (the inspector is reused).  It runs the executor's
-        captured ``factorize`` program; ``self.lx`` holds the pools (the
-        simplicial tier: the L values) that no later factorize
-        overwrites.  ``check_spd`` (default): raise
+        """Numeric factorization; ``a`` may carry new values on the
+        analysed pattern (the inspector is reused): its ``indptr`` and
+        ``indices`` (those of its lower half, when ``a`` is not
+        lower-half) must be the analysed ones, the very arrays or equal
+        ones, else ``ValueError``.  ``a.data`` goes to the device in its
+        own order and is gathered there into the factor's order by a map
+        fixed at analysis; with no ``a`` the analysed values are used.  It
+        runs the executor's captured ``factorize`` program; ``self.lx``
+        holds the pools (the simplicial tier: the L values) that no later
+        factorize overwrites.  ``check_spd`` (default): raise
         :class:`NotPositiveDefiniteError` when a pivot was not positive
         (one device-side reduction, one scalar fetch).  Under a profiler
         it shows as the span ``solver.factorize`` around
-        ``solver.permute_values``, the executor's spans and
+        ``solver.permute_values`` (the pattern check, the copy of
+        ``a.data`` to the device and the gather), the executor's spans
+        (``executor.load`` then copies device to device) and
         ``solver.spd_check``."""
         with span("solver.factorize"):
             with span("solver.permute_values"):
                 data = (self.ap.data if a is None
-                        else a.permute(self.perm).data)
+                        else self._gather_values(a))
             self.lx = self.executor.factorize(data)
             self._spd_ok = None
             if check_spd:
@@ -268,7 +327,7 @@ class CholeskySolver:
             raise ValueError("fused_finalize needs tier='supernodal'")
         self.a = a if a.is_lower() else a.lower_half()
         self.perm = obj["perm"]
-        self.ap = self.a.permute(self.perm)
+        self._set_value_map(_entry_ids(self.a).permute(self.perm))
         self.parent = obj["parent"]
         self.cc = obj["cc"]
         self._lpat = obj["lpat"]
@@ -285,11 +344,20 @@ class CholeskySolver:
         else:
             self.executor = SimplicialExecutor(self.plan, self.config.dtype,
                                                self.device)
+        self._vmap_dev = self._vmap_dev.to(self.device)
         self.lx = None
         self._spd_ok = None
         self._inv = np.empty(a.n, dtype=np.int64)
         self._inv[self.perm] = np.arange(a.n)
         return self
+
+
+def _entry_ids(a: CSC) -> CSC:
+    """``a``'s pattern with the entry ids 1..nnz as its values: float64
+    holds them exactly, and no id is an exact zero, which symmetrizing in
+    ``CSC.permute`` would drop."""
+    return CSC(a.n, a.indptr, a.indices,
+               np.arange(1, a.nnz + 1, dtype=np.float64), a.coords)
 
 
 def _pattern(l: CSC):
