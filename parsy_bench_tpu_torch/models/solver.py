@@ -26,6 +26,7 @@ from parsy_bench_tpu_torch.symbolic.colcounts import (col_counts,
 from parsy_bench_tpu_torch.symbolic.etree import (etree, postorder,
                                                   tree_levels)
 from parsy_bench_tpu_torch.symbolic.ordering import compute_ordering
+from parsy_bench_tpu_torch.ops.residual import SymmetricResidual
 from parsy_bench_tpu_torch.ops.simplicial import SimplicialExecutor
 from parsy_bench_tpu_torch.ops.supernodal import (SupernodalExecutor,
                                                   resolve_device)
@@ -122,11 +123,21 @@ class CholeskySolver:
                                                self.device)
         self._vmap_dev = self._vmap_dev.to(self.device)
         _mark("executor_init_s")
+        self._init_numeric()
+
+    def _init_numeric(self) -> None:
+        """The state of the numeric phase, before any ``factorize``."""
         self.lx = None
         self._spd_ok = None
+        #: with refinement: the latest factorize's A values in ``self.ap``'s
+        #: order, float64 on the device, and the residual's operator
+        self._a64 = None
+        self._residual = None
+        #: the refinement sweeps the last ``solve`` ran
+        self.refine_sweeps = 0
         # scatter helper: x[perm[r]] = xp[r]
-        self._inv = np.empty(a.n, dtype=np.int64)
-        self._inv[self.perm] = np.arange(a.n)
+        self._inv = np.empty(self.a.n, dtype=np.int64)
+        self._inv[self.perm] = np.arange(self.a.n)
 
     def _set_value_map(self, ap_ids: CSC) -> None:
         """``self.ap`` and the value map from the analysed pattern's entry
@@ -146,9 +157,10 @@ class CholeskySolver:
                       self.a.data[vmap], ap_ids.coords)
         self._vmap_dev = torch.from_numpy(vmap.astype(np.int32))
 
-    def _gather_values(self, a: CSC):
-        """``a``'s values in ``self.ap``'s order: ``a.data`` copied to the
-        device as it is, then one gather by the map fixed at analysis.
+    def _gather_values(self, a: CSC, dtype):
+        """``a``'s values in ``self.ap``'s order, as ``dtype``: ``a.data``
+        copied to the device as it is, then one gather by the map fixed at
+        analysis.
         ``a`` must carry the analysed pattern, the very arrays or equal
         ones; an ``a`` that is not lower-half is first cut to its lower
         half, as ``__init__`` cuts it.  Any other pattern raises
@@ -164,7 +176,7 @@ class CholeskySolver:
             raise ValueError(f"expected {len(self._vmap_dev)} A values, got "
                              f"{len(a.data)}")
         vals = torch.as_tensor(np.ascontiguousarray(a.data)).to(
-            device=self.device, dtype=self.executor.dtype)
+            device=self.device, dtype=dtype)
         return vals.index_select(0, self._vmap_dev)
 
     def _is_analysed_pattern(self, a: CSC) -> bool:
@@ -194,7 +206,10 @@ class CholeskySolver:
         fixed at analysis; with no ``a`` the analysed values are used.  It
         runs the executor's captured ``factorize`` program; ``self.lx``
         holds the pools (the simplicial tier: the L values) that no later
-        factorize overwrites.  ``check_spd`` (default): raise
+        factorize overwrites.  With ``config.refine_steps`` the values go
+        to the device in float64 and stay there in the factor's order
+        (``solve``'s residuals use them); the executor's load casts them to
+        its dtype.  ``check_spd`` (default): raise
         :class:`NotPositiveDefiniteError` when a pivot was not positive
         (one device-side reduction, one scalar fetch).  Under a profiler
         it shows as the span ``solver.factorize`` around
@@ -204,8 +219,15 @@ class CholeskySolver:
         ``solver.spd_check``."""
         with span("solver.factorize"):
             with span("solver.permute_values"):
-                data = (self.ap.data if a is None
-                        else self._gather_values(a))
+                if not self.config.refine_steps:
+                    self._a64 = None
+                    data = (self.ap.data if a is None
+                            else self._gather_values(a, self.executor.dtype))
+                else:
+                    self._a64 = data = (
+                        torch.as_tensor(self.ap.data, dtype=torch.float64,
+                                        device=self.device) if a is None
+                        else self._gather_values(a, torch.float64))
             self.lx = self.executor.factorize(data)
             self._spd_ok = None
             if check_spd:
@@ -218,31 +240,61 @@ class CholeskySolver:
         return self
 
     def solve(self, b: np.ndarray) -> np.ndarray:
-        """x = A^{-1} b (factorize() must have run), with
-        ``config.refine_steps`` sweeps of iterative refinement; each solve
-        runs the executor's captured ``solve_spd`` program.  Under a
+        """x = A^{-1} b (factorize() must have run); each solve with the
+        factor runs the executor's captured ``solve_spd`` program.  Under a
         profiler it shows as the span ``solver.solve`` around
-        ``solver.permute_rhs``, the executor's spans, ``solver.fetch_x``,
-        ``solver.unpermute_x`` and, with refinement, ``solver.refine``."""
+        ``solver.permute_rhs``, the executor's spans, ``solver.fetch_x``
+        and ``solver.unpermute_x``.
+
+        With ``config.refine_steps`` = k > 0 it is mixed-precision
+        iterative refinement against the values of the latest
+        ``factorize``, in the factor's order on the device: b is permuted
+        once, x = solve_spd(b), then k sweeps (span ``solver.refine``) of
+        r = b - A x in float64 (span ``solver.residual``,
+        ``ops/residual.SymmetricResidual``) and x += solve_spd(r), the
+        solve in the factor's dtype and x kept in float64.  It returns
+        float64 (without refinement: the factor's dtype), and
+        ``refine_sweeps`` counts the sweeps it ran."""
         if self.lx is None:
             raise RuntimeError("call factorize() first")
         with span("solver.solve"):
             b = np.asarray(b)
-            x = self._solve_perm(b)
-            if self.config.refine_steps:
-                with span("solver.refine"):
-                    for _ in range(self.config.refine_steps):
-                        x = x + self._solve_perm(b - self.a.matvec(x))
-        return x
+            if not self.config.refine_steps:
+                self.refine_sweeps = 0
+                return self._solve_perm(b)
+            return self._solve_refined(b)
 
     def _solve_perm(self, b: np.ndarray) -> np.ndarray:
         with span("solver.permute_rhs"):
             bp = b[self.perm]
         xp = self.executor.solve_spd(self.lx, bp)
+        return self._unpermute(xp)
+
+    def _unpermute(self, xp: torch.Tensor) -> np.ndarray:
         with span("solver.fetch_x"):
             xh = xp.cpu()
         with span("solver.unpermute_x"):
             return xh.numpy()[self._inv]
+
+    def _solve_refined(self, b: np.ndarray) -> np.ndarray:
+        if self._a64 is None:
+            raise RuntimeError("refinement needs a factorize() with "
+                               "refine_steps > 0")
+        if self._residual is None:
+            self._residual = SymmetricResidual(self.ap.indptr,
+                                               self.ap.indices, self.device)
+        with span("solver.permute_rhs"):
+            bp = torch.as_tensor(np.ascontiguousarray(
+                b[self.perm], dtype=np.float64)).to(self.device)
+        x = self.executor.solve_spd(self.lx, bp).double()
+        self.refine_sweeps = 0
+        with span("solver.refine"):
+            for _ in range(self.config.refine_steps):
+                with span("solver.residual"):
+                    r = self._residual(self._a64, bp, x)
+                x += self.executor.solve_spd(self.lx, r)
+                self.refine_sweeps += 1
+        return self._unpermute(x)
 
     def _l_values(self) -> np.ndarray:
         """Simplicial-pattern L values, whichever tier produced them."""
@@ -345,10 +397,7 @@ class CholeskySolver:
             self.executor = SimplicialExecutor(self.plan, self.config.dtype,
                                                self.device)
         self._vmap_dev = self._vmap_dev.to(self.device)
-        self.lx = None
-        self._spd_ok = None
-        self._inv = np.empty(a.n, dtype=np.int64)
-        self._inv[self.perm] = np.arange(a.n)
+        self._init_numeric()
         return self
 
 
