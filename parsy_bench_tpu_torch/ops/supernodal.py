@@ -29,7 +29,9 @@ Counterpart of ``parsy_bench_tpu/ops/supernodal.py`` on the same
   ``solve_prep`` in place of the gather and the one-hot product;
 * ``solve_upper`` / ``solve_spd`` — leveled blocked solves over the same
   wavefront schedule (``solve_spd`` runs the leveled forward solve, as the
-  JAX executor's does);
+  JAX executor's does); each bucket lands only its real entries, by index
+  lists fixed at construction (``solve_scatter_lists``), where the JAX
+  executor sends every padded lane to a pad slot;
 * ``factorize_segmented``, ``factorize_loop``, ``solve_loop`` and
   ``profile_segments`` — the JAX executor's benchmark entry points;
 * ``init_pools`` and ``prepare_solve_pools`` — a given factor's values
@@ -210,6 +212,67 @@ class _UpdTables:
     dst: torch.Tensor | None  # (T, GP, Mc) window row; scatter path only
 
 
+def solve_scatter_lists(w, cols0, rows, c, n, G=1, rank=0):
+    """The real entries the leveled solves land for one finalize bucket of
+    width ``c`` over its T level steps, from the plan's host arrays ``w``
+    (T, P), ``cols0`` (T, P) and ``rows`` (T, P, H), as numpy arrays
+    (cpos, ccol, coff, rpos, rrow, roff):
+
+    * ``cpos`` / ``ccol``: the flat positions p*c + j, j < w[t, p], of the
+      (P, c) solve block and their columns cols0[t, p] + j;
+    * ``rpos`` / ``rrow``: the flat positions p*H + h, h >= w[t, p] and
+      rows[t, p, h] < n, of the (P, H) product and their rows;
+    * ``coff`` / ``roff``: (T + 1,) offsets of each step's run.
+
+    Each step's run keeps the flat order.  Only the lanes p % G == rank
+    (one rank's owner-strided lanes) are listed."""
+    w = np.asarray(w, dtype=np.int64)
+    cols0 = np.asarray(cols0, dtype=np.int64)
+    rows = np.asarray(rows, dtype=np.int64)
+    T, P, H = rows.shape
+    own = (np.arange(P) % G == rank)[None, :, None]
+    colm = (np.arange(c)[None, None, :] < w[:, :, None]) & own
+    rowm = ((np.arange(H)[None, None, :] >= w[:, :, None]) & (rows < n)
+            & own)
+    cpos = np.nonzero(colm.reshape(T, -1))[1]
+    rpos = np.nonzero(rowm.reshape(T, -1))[1]
+    ccol = (cols0[:, :, None] + np.arange(c))[colm]
+    rrow = rows[rowm]
+    coff = np.concatenate([[0], np.cumsum(colm.reshape(T, -1).sum(1))])
+    roff = np.concatenate([[0], np.cumsum(rowm.reshape(T, -1).sum(1))])
+    return cpos, ccol, coff, rpos, rrow, roff
+
+
+@dataclasses.dataclass
+class _Scatter:
+    """One finalize bucket's ``solve_scatter_lists`` on the device, each
+    list one flat tensor over the bucket's steps; step t's run is the
+    view [off[t], off[t + 1]), taken by host integers."""
+    cpos: torch.Tensor        # int32
+    ccol: torch.Tensor        # int64: index_copy_ takes no other
+    coff: np.ndarray          # (T + 1,) host
+    rpos: torch.Tensor        # int32
+    rrow: torch.Tensor        # int32
+    roff: np.ndarray          # (T + 1,) host
+
+    def land_cols(self, x, xs, t):
+        """x[ccol] = xs.flat[cpos] over step t's run: a plain scatter
+        (same-level panels' columns are disjoint)."""
+        lo, hi = int(self.coff[t]), int(self.coff[t + 1])
+        if hi > lo:
+            x.index_copy_(0, self.ccol[lo:hi],
+                          xs.reshape(-1).index_select(0, self.cpos[lo:hi]))
+
+    def sub_rows(self, d, y, t):
+        """d[rrow] -= y.flat[rpos] over step t's run, in the run's order
+        (same-level panels can share an ancestor row)."""
+        lo, hi = int(self.roff[t]), int(self.roff[t + 1])
+        if hi > lo:
+            d.index_add_(0, self.rrow[lo:hi],
+                         y.reshape(-1).index_select(0, self.rpos[lo:hi]),
+                         alpha=-1)
+
+
 @dataclasses.dataclass
 class _FinTables:
     cnt: np.ndarray           # (T,) host: true lanes per step
@@ -217,6 +280,7 @@ class _FinTables:
     w: torch.Tensor           # (T, P) logical widths
     cols0: torch.Tensor       # (T, P) first global column; pad -> n
     rows: torch.Tensor        # (T, P, H) global rows; pad -> n
+    sc: _Scatter              # the leveled solves' real entries
 
 
 @dataclasses.dataclass
@@ -281,6 +345,9 @@ class SupernodalExecutor(graphs.ProgramHost):
         self._l_map = None
         self._iota = {}
         self._segs = [self._ingest(seg) for seg in plan.segments]
+        self._rank_scatters = {}
+        self._landed = sum(2 * int(ft.sc.coff[-1]) + int(ft.sc.roff[-1])
+                           for tabs in self._segs for ft in tabs.fin)
         self._has_fast_solve = (
             plan.bmap is not None
             and all(seg.srlo is not None for seg in plan.segments))
@@ -422,7 +489,8 @@ class SupernodalExecutor(graphs.ProgramHost):
             fin.append(_FinTables(cnt=np.asarray(b.cnt, dtype=np.int64),
                                   boff=boff, w=self._up(b.w),
                                   cols0=self._up(b.cols0),
-                                  rows=self._up(b.rows)))
+                                  rows=self._up(b.rows),
+                                  sc=self._scatter_of(b)))
         # shared chol per class, batched in groups whose total lane count
         # keeps every (sumP, c, c) temp bounded (plan.fin_chol_elems)
         fin_groups, fin_fused = [], []
@@ -436,6 +504,46 @@ class SupernodalExecutor(graphs.ProgramHost):
             fin_groups.append(chol_groups(self.plan, seg, mine, c, 1))
         return _SegTables(rlo=rlo, upd=upd, fin=fin, gsc=gsc_t,
                           fin_groups=fin_groups, fin_fused=fin_fused)
+
+    def _scatter_of(self, b, G=1, rank=0) -> _Scatter:
+        """``solve_scatter_lists`` of finalize bucket ``b`` (the lanes of
+        ``rank`` of G), checked and on the device: every position inside
+        its block, every column and row in [0, n), so none is a pad."""
+        n = self.plan.n
+        cpos, ccol, coff, rpos, rrow, roff = solve_scatter_lists(
+            b.w, b.cols0, b.rows, b.c, n, G, rank)
+        require(cpos.size == 0 or (cpos.max() < b.P * b.c
+                                   and 0 <= ccol.min()
+                                   and ccol.max() < n),
+                "solve column entry outside its block or [0, n)")
+        require(rpos.size == 0 or (rpos.max() < b.P * b.H
+                                   and 0 <= rrow.min()
+                                   and rrow.max() < n),
+                "solve row entry outside its block or [0, n)")
+        return _Scatter(cpos=self._up(cpos), ccol=self._up(ccol, torch.int64),
+                        coff=coff, rpos=self._up(rpos), rrow=self._up(rrow),
+                        roff=roff)
+
+    def _scatters(self, group=None) -> list:
+        """Per segment, per finalize bucket: the ``_Scatter`` the leveled
+        solves land with; with ``group`` its rank's lanes only, built at
+        the group's first solve and kept."""
+        if group is None:
+            return [[ft.sc for ft in tabs.fin] for tabs in self._segs]
+        key = (group.size, group.rank)
+        if key not in self._rank_scatters:
+            self._rank_scatters[key] = [
+                [self._scatter_of(b, *key) for b in seg.fin]
+                for seg in self.plan.segments]
+        return self._rank_scatters[key]
+
+    @property
+    def solve_scatter_counts(self) -> dict:
+        """Entries one ``solve_spd`` scatters (``landed``: each column
+        once a direction, and each real row below a panel once) and
+        entries it sends to a pad slot (``padded``: none, as the lists
+        hold no pad)."""
+        return {"landed": self._landed, "padded": 0}
 
     @property
     def chol_calls_per_factorize(self) -> int:
@@ -964,68 +1072,63 @@ class SupernodalExecutor(graphs.ProgramHost):
         return self._check_vec(b).to(device=self.device, dtype=self.dtype)
 
     def _solve_lower_impl(self, pools, b_vec, group=None):
-        """Forward substitution over the wavefront schedule.  With
-        ``group`` each rank solves its owner-strided lanes and adds its
-        x entries and right-hand-side updates; one ``psum`` of each per
+        """Forward substitution over the wavefront schedule.  Each bucket
+        lands only its real entries (``_Scatter``): x at its columns, and
+        the right-hand-side updates at its rows below, through one delta
+        per level step.  With ``group`` each rank solves its owner-strided
+        lanes into a dense x delta too, and one ``psum`` of each delta per
         level step merges the ranks (JAX: the ``axis_name`` branch)."""
         with _scope("slv.lower"):
             n = self.plan.n
             zero1 = torch.zeros(1, dtype=self.dtype, device=self.device)
+            # slot n stays zero: the gathers below read it for pad lanes
             x = torch.zeros(n + 1, dtype=self.dtype, device=self.device)
             bc = torch.cat([b_vec, zero1])
-            for seg, tabs in zip(self.plan.segments, self._segs):
+            for seg, tabs, scs in zip(self.plan.segments, self._segs,
+                                      self._scatters(group)):
                 for t in range(seg.nsteps):
-                    dx = torch.zeros_like(x)
-                    dbc = torch.zeros_like(x)
-                    for b, ft in zip(seg.fin, tabs.fin):
+                    dx = x if group is None else torch.zeros_like(x)
+                    dbc = torch.zeros_like(bc)
+                    for b, ft, sc in zip(seg.fin, tabs.fin, scs):
                         blk = self._panel_blk(pools, b, ft, tabs.rlo, t)
                         w = ft.w[t]
                         Linv = self._inv_blk(blk, w, b.c)
                         arc = self._ar(b.c)
                         cidx = torch.clamp(ft.cols0[t][:, None] + arc, max=n)
+                        # the mask: a real lane's pad columns read the next
+                        # panel's columns
                         colv = arc[None, :] < w[:, None]
                         if group is not None:
-                            own = self._own_mask(b.P, group)
-                            colv = colv & own
-                        bvec = bc[cidx] * colv
-                        xs_ = torch.bmm(Linv, bvec[:, :, None])[:, :, 0] * colv
-                        # same-level panels' columns are disjoint and start
-                        # at zero, so add == set
-                        dx.index_add_(
-                            0, torch.where(colv, cidx, n).reshape(-1),
-                            xs_.masked_fill(~colv, 0).reshape(-1))
-                        y = torch.bmm(blk, xs_[:, :, None])[:, :, 0]
-                        below = self._ar(b.H)[None, :] >= w[:, None]
-                        if group is not None:
-                            below = below & own
-                        ridx = torch.where(below, ft.rows[t], n)
-                        dbc.index_add_(0, ridx.reshape(-1),
-                                       (-(y * below)).reshape(-1))
+                            colv = colv & self._own_mask(b.P, group)
+                        # Linv's rows past w are zero, so xs_ is zero there
+                        xs_ = torch.bmm(Linv, (bc[cidx] * colv)[:, :, None])
+                        sc.land_cols(dx, xs_, t)
+                        sc.sub_rows(dbc, torch.bmm(blk, xs_), t)
                     if group is not None:
-                        group.psum(dx)
+                        x = x + group.psum(dx)
                         group.psum(dbc)
-                    # the pad slot n is cleared by a fill: an element set
-                    # copies a host scalar, which a capture refuses
-                    x = x + dx
-                    x[n:].zero_()
                     bc = bc + dbc
-                    bc[n:].zero_()
             return x[:n]
 
     def _solve_upper_impl(self, pools, b_vec, group=None):
-        """Backward substitution: the schedule in reverse.  With ``group``
-        each rank solves its owner-strided lanes and one ``psum`` of dx
-        per level step merges them."""
+        """Backward substitution: the schedule in reverse, x landed at each
+        bucket's real columns (``_Scatter``).  With ``group`` each rank
+        solves its owner-strided lanes into a dense x delta, and one
+        ``psum`` of it per level step merges them."""
         with _scope("slv.upper"):
             n = self.plan.n
             zero1 = torch.zeros(1, dtype=self.dtype, device=self.device)
+            # slot n stays zero: the gathers below read it for pad rows
             x = torch.zeros(n + 1, dtype=self.dtype, device=self.device)
             bp = torch.cat([b_vec, zero1])
-            for seg, tabs in zip(reversed(self.plan.segments),
-                                 reversed(self._segs)):
+            for seg, tabs, scs in zip(reversed(self.plan.segments),
+                                      reversed(self._segs),
+                                      reversed(self._scatters(group))):
                 for t in reversed(range(seg.nsteps)):
-                    dx = torch.zeros_like(x)
-                    for b, ft in zip(seg.fin, tabs.fin):
+                    # same-level panels read no column of one another, so
+                    # x takes each bucket's columns at once
+                    dx = x if group is None else torch.zeros_like(x)
+                    for b, ft, sc in zip(seg.fin, tabs.fin, scs):
                         blk = self._panel_blk(pools, b, ft, tabs.rlo, t)
                         w = ft.w[t]
                         Linv = self._inv_blk(blk, w, b.c)
@@ -1039,15 +1142,10 @@ class SupernodalExecutor(graphs.ProgramHost):
                         if group is not None:
                             colv = colv & self._own_mask(b.P, group)
                         rhs = (bp[cidx] - tt) * colv
-                        xs_ = torch.bmm(Linv.transpose(1, 2),
-                                        rhs[:, :, None])[:, :, 0] * colv
-                        dx.index_add_(
-                            0, torch.where(colv, cidx, n).reshape(-1),
-                            xs_.masked_fill(~colv, 0).reshape(-1))
+                        sc.land_cols(dx, torch.bmm(Linv.transpose(1, 2),
+                                                   rhs[:, :, None]), t)
                     if group is not None:
-                        group.psum(dx)
-                    x = x + dx
-                    x[n:].zero_()
+                        x = x + group.psum(dx)
             return x[:n]
 
     def _linv_pools(self, pools, linv=None):
