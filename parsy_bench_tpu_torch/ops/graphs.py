@@ -143,8 +143,10 @@ def _chain_order(graph, nodes: int):
     frm, to = (ctypes.c_void_p * k)(), (ctypes.c_void_p * k)()
     # CUgraphEdgeData is 8 bytes
     data = (ctypes.c_uint8 * (8 * k))()
-    _check(lib.cuGraphGetEdges_v2(h, frm, to, data, ctypes.byref(n)),
-           "cuGraphGetEdges_v2")
+    # a one-node graph has no edge, and the driver refuses empty arrays
+    if k:
+        _check(lib.cuGraphGetEdges_v2(h, frm, to, data, ctypes.byref(n)),
+               "cuGraphGetEdges_v2")
     succ = dict(zip(frm, to))
     if len(succ) != k or k != nodes - 1:
         return None

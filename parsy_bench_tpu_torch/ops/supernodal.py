@@ -38,15 +38,17 @@ Counterpart of ``parsy_bench_tpu/ops/supernodal.py`` on the same
   placed in the pools and its diagonal blocks' inverses stored, for the
   blocked ``TriangularSolver`` on a trisolve plan
   (``symbolic/strisolve.py``: finalize buckets, no update buckets);
-* the rank-aware branches of the step loop and the leveled solves, the
-  counterparts of the JAX executor's ``axis_name`` branches, which
-  ``parallel/sharded.py`` runs on a plan with ``num_partitions`` = G > 1
-  in each of G ranks (``group``, ``parallel/comm.py``): each rank takes
-  its own shard of every update bucket's lanes and its owner-strided
+* ``_step(..., group, groups)`` and the leveled solves with ``group``,
+  the counterparts of the JAX executor's ``axis_name`` branches, which
+  ``parallel/sharded.py`` runs on a plan with ``num_partitions`` = G in
+  each of G ranks (``group``, ``parallel/comm.py``): each rank takes its
+  own shard of every update bucket's lanes and its owner-strided
   finalize and solve lanes (lane % G == rank), and one ``psum`` per class
-  delta, finalize delta or solve step merges them.  With ``group=None``
-  (everything the single-device executor runs, its captured programs
-  included) the code is the single-device path.
+  delta, finalize delta or solve step merges them.  The unfused finalize
+  is one body for every caller (``fin_lanes``, ``fin_inverses``,
+  ``fin_land``): the single-device step, a rank's step (at G = 1 the
+  single-device views), ``parallel/dist.py``'s step and
+  ``scripts/fin_ablate.py``'s variants.
 
 Every entry point that the JAX executor compiles runs here as captured
 programs (``ops/graphs.py``): closures over static tensors (the A values
@@ -106,8 +108,8 @@ _scope = trace.span
 #: one-hot alignment (``update_block``); the call buffer, the ladder sums
 #: and the window take and subtract (``_apply_updates_gather``; in the
 #: scatter branch, the delta buffers, the products' landing in them and
-#: their subtraction); the masked SPD build, K1, the finalize tail and the
-#: delta (``_finalize``, unfused)
+#: their subtraction); the masked SPD build and K1 (``fin_inverses``), the
+#: finalize tail and the delta (``fin_land``)
 SCOPES = ("init", "upd.operands", "upd.product", "upd.align", "upd.cat",
           "upd.ladder", "upd.take_sub", "fin.spd", "fin.k1", "fin.diff",
           "fin.delta")
@@ -195,6 +197,72 @@ def update_block(pool8, a8, b8, colq, b, ar, dtype):
     with _scope("upd.align"):
         S = (ar(b.c)[None, :, None] == colq[:, None, :]).to(dtype)
         return torch.bmm(Chat, S.transpose(1, 2))
+
+
+@dataclasses.dataclass
+class FinLanes:
+    """Lanes g, g + G, ... of one finalize bucket at one level step: rank
+    g of G's (every lane at G = 1)."""
+    blk: torch.Tensor         # (P / G, H, c) view into the window
+    w: torch.Tensor           # (P / G,) logical widths
+    cnt: int                  # true lanes among them (a prefix)
+    rows: slice               # the bucket's window rows
+    g: int = 0
+    G: int = 1
+
+
+def fin_lanes(win, b, ft, t, g=0, G=1) -> FinLanes:
+    """Bucket ``b``'s ``FinLanes`` of rank g of G in the class window
+    ``win`` at step t, from its tables ``ft`` (``boff``, ``cnt``, ``w``).
+    At G = 1 the views take no lane axis, so that the single-device step
+    records no select or alias operation in a profile."""
+    off = int(ft.boff[t])
+    rows = slice(off, off + b.P * b.H)
+    cnt = max(0, -(-(int(ft.cnt[t]) - g) // G))
+    if G == 1:
+        return FinLanes(win[rows].view(b.P, b.H, b.c), ft.w[t], cnt, rows)
+    return FinLanes(win[rows].view(-1, G, b.H, b.c)[:, g],
+                    ft.w[t].view(-1, G)[:, g], cnt, rows, g, G)
+
+
+def fin_inverses(groups, dtype, chol=None) -> list:
+    """The unfused finalize's first half for one width class: per chol
+    group (a list of ``FinLanes``) the masked SPD of the tops and one
+    ``chol`` call (``chol_inverse``, looked up here, unless given); (L,
+    Linv) per bucket in the groups' order."""
+    facs = []
+    for grp in groups:
+        c = grp[0].blk.shape[2]
+        with _scope("fin.spd"):
+            D = dense.masked_spd(torch.cat([x.blk[:, :c, :] for x in grp]),
+                                 torch.cat([x.w for x in grp]), c, dtype)
+        with _scope("fin.k1"):
+            L, Linv = (chol or chol_inverse)(D)
+        lo = 0
+        for x in grp:
+            hi = lo + x.blk.shape[0]
+            facs.append((L[lo:hi], Linv[lo:hi]))
+            lo = hi
+    return facs
+
+
+def fin_land(win, delta, lanes, facs, group=None, diff=None):
+    """The second half: each bucket's ``diff`` (``dense.finalize_diff``
+    unless given; it leaves Linv^T in the diag block's strict upper
+    triangle, for the solves) landed in the zero ``delta``, one ``psum``
+    of it with ``group``, then ``win += delta``."""
+    for x, (L, Linv) in zip(lanes, facs):
+        with _scope("fin.diff"):
+            d = (diff or dense.finalize_diff)(x.blk, x.w, x.cnt, L, Linv)
+        with _scope("fin.delta"):
+            if x.G == 1:
+                delta[x.rows] += d.view(-1, d.shape[2])
+            else:
+                delta[x.rows].view(-1, x.G, *d.shape[1:])[:, x.g] += d
+    with _scope("fin.delta"):
+        if group is not None:
+            group.psum(delta)
+        win += delta
 
 
 def _lanes_major(arr):
@@ -839,103 +907,30 @@ class SupernodalExecutor(graphs.ProgramHost):
                 wins[ci].sub_(deltas[ci][:seg.wslice[ci]])
 
     # ---------------------------------------------------------- finalize
-    def _finalize(self, wins, seg, tabs, t):
-        """Shared blocked Cholesky per width class + per-bucket TRSM-as-
-        GEMM on contiguous window slices.  Every bucket reads the
-        pre-finalize window and adds a lane-masked diff to one per-class
-        delta; padded lanes contribute zero.
-
-        A fused class instead runs one ``finalize_fused`` per bucket and
-        adds its diff in place, bucket after bucket, as the JAX fused
-        branch does: real lanes never overlap across buckets and padded
-        lanes' diffs are zero, so this equals the delta accumulation."""
-        for ci, c in enumerate(self.classes):
+    def _finalize(self, wins, seg, tabs, t, group=None, groups=None):
+        """Per width class: the fused buckets, one ``finalize_fused`` each
+        (single-device), then the unfused body over the chol groups:
+        every bucket reads the pre-finalize window and adds a lane-masked
+        diff to one class delta (real lanes never overlap across buckets
+        and padded lanes' diffs are zero).  With ``group`` the rank takes
+        its owner-strided lanes of the chol groups ``groups`` holds per
+        class (``chol_groups`` at G)."""
+        g, G = (group.rank, group.size) if group is not None else (0, 1)
+        for ci in range(self.ncls):
             for k in tabs.fin_fused[ci]:
-                b, ft = seg.fin[k], tabs.fin[k]
-                off = int(ft.boff[t])
-                blk = wins[ci][off:off + b.P * b.H].view(b.P, b.H, c)
-                blk += finalize_fused(blk, ft.w[t], int(ft.cnt[t]))
-            groups = tabs.fin_groups[ci]
-            if not groups:
+                x = fin_lanes(wins[ci], seg.fin[k], tabs.fin[k], t)
+                x.blk += finalize_fused(x.blk, x.w, x.cnt)
+            grps = (groups or tabs.fin_groups)[ci]
+            if not grps:
                 continue
             win = wins[ci]
             with _scope("fin.delta"):
                 delta = torch.zeros_like(win)
-            blks, ws = {}, {}
-            for grp in groups:
-                for k in grp:
-                    b, ft = seg.fin[k], tabs.fin[k]
-                    off = int(ft.boff[t])
-                    blks[k] = win[off:off + b.P * b.H].view(b.P, b.H, c)
-                    ws[k] = ft.w[t]
-            Ls, Linvs = {}, {}
-            for grp in groups:
-                with _scope("fin.spd"):
-                    D = dense.masked_spd(
-                        torch.cat([blks[k][:, :c, :] for k in grp]),
-                        torch.cat([ws[k] for k in grp]), c, self.dtype)
-                with _scope("fin.k1"):
-                    Lg, Lig = chol_inverse(D)
-                off = 0
-                for k in grp:
-                    Pk = seg.fin[k].P
-                    Ls[k] = Lg[off:off + Pk]
-                    Linvs[k] = Lig[off:off + Pk]
-                    off += Pk
-            for k in sorted(blks):
-                b, ft = seg.fin[k], tabs.fin[k]
-                # Linv^T rides in the (otherwise zero) strict upper
-                # triangle of the diag block: the solves read it back
-                # (_inv_blk)
-                with _scope("fin.diff"):
-                    diff = dense.finalize_diff(blks[k], ws[k],
-                                               int(ft.cnt[t]), Ls[k],
-                                               Linvs[k])
-                off = int(ft.boff[t])
-                with _scope("fin.delta"):
-                    delta[off:off + b.P * b.H] += diff.view(-1, c)
-            with _scope("fin.delta"):
-                win += delta
-
-    def _finalize_shard(self, wins, seg, tabs, t, group, groups):
-        """``_finalize`` in one rank of ``group`` (the JAX ``axis_name``
-        branch): each bucket's lanes are owner-strided, lane l on rank
-        l % G, so the rank factors the lanes rank, rank + G, ... of the
-        (replicated) pre-finalize window, places their diff back at stride
-        G in a per-class delta, and one ``psum`` of that delta merges the
-        ranks.  ``groups`` holds, per class, the runs of buckets batched
-        into one ``chol_inverse`` call (``chol_groups`` at G).  The rank's
-        lanes below cnt are a prefix of its own lanes, so
-        ``dense.finalize_diff`` masks them with that prefix."""
-        g, G = group.rank, group.size
-        for ci, c in enumerate(self.classes):
-            if not groups[ci]:
-                continue
-            win = wins[ci]
-            delta = torch.zeros_like(win)
-            for grp in groups[ci]:
-                blks, ws = [], []
-                for k in grp:
-                    b, ft = seg.fin[k], tabs.fin[k]
-                    off = int(ft.boff[t])
-                    blks.append(win[off:off + b.P * b.H].view(
-                        b.P // G, G, b.H, c)[:, g])
-                    ws.append(ft.w[t].view(b.P // G, G)[:, g])
-                D = dense.masked_spd(torch.cat([x[:, :c, :] for x in blks]),
-                                     torch.cat(ws), c, self.dtype)
-                L, Linv = chol_inverse(D)
-                lo = 0
-                for k, blk, w in zip(grp, blks, ws):
-                    b, ft = seg.fin[k], tabs.fin[k]
-                    hi = lo + blk.shape[0]
-                    own_cnt = max(0, -(-(int(ft.cnt[t]) - g) // G))
-                    diff = dense.finalize_diff(blk, w, own_cnt, L[lo:hi],
-                                               Linv[lo:hi])
-                    lo = hi
-                    off = int(ft.boff[t])
-                    delta[off:off + b.P * b.H].view(
-                        b.P // G, G, b.H, c)[:, g] += diff
-            win += group.psum(delta)
+            lanes = [[fin_lanes(win, seg.fin[k], tabs.fin[k], t, g, G)
+                      for k in grp] for grp in grps]
+            facs = fin_inverses(lanes, self.dtype)
+            fin_land(win, delta, [x for grp in lanes for x in grp], facs,
+                     group)
 
     # ------------------------------------------------------------ factor
     def _windows(self, pools, seg, tabs, t):
@@ -944,10 +939,13 @@ class SupernodalExecutor(graphs.ProgramHost):
                                 seg.wslice[ci])
                 for ci in range(self.ncls)]
 
-    def _step(self, pools, seg, tabs, t):
+    def _step(self, pools, seg, tabs, t, group=None, groups=None):
+        """Level step t: the updates, then the finalize, on the windows;
+        with ``group`` (and its ``groups``, see ``_finalize``) as one rank
+        of the sharded tier (``parallel/sharded.py``)."""
         wins = self._windows(pools, seg, tabs, t)
-        self._apply_updates(pools, wins, seg, tabs, t)
-        self._finalize(wins, seg, tabs, t)
+        self._apply_updates(pools, wins, seg, tabs, t, group)
+        self._finalize(wins, seg, tabs, t, group, groups)
 
     def _load_a(self, a_data):
         """Copy the A values into the static input, outside any program:
@@ -1428,10 +1426,10 @@ class SupernodalExecutor(graphs.ProgramHost):
         records, on ``factorize_segmented``'s segments at ``group=1``.
 
         Segment i is timed on pools factored through segment i-1, as
-        ``scripts/attribution.SegmentTimer`` times a program: each run
-        first restores the rows the segment's steps write, then runs the
-        segment; ``reps`` runs back to back, ``iters`` times, in turns with
-        a restore-only program whose median is subtracted.  ``median_s``
+        ``SegmentTimer`` times a program: each run first restores the rows
+        the segment's steps write, then runs the segment; ``reps`` runs
+        back to back, ``iters`` times, in turns with a restore-only program
+        whose median is subtracted.  ``median_s``
         is per run: device time between CUDA events on the card (after a
         device sleep that lets the host enqueue the runs first), host time
         on the CPU.  The JAX executor instead runs the segment again on its
@@ -1439,8 +1437,6 @@ class SupernodalExecutor(graphs.ProgramHost):
         take the time of real ones in the same turns, but that protocol's
         times missed the restored ones by more than 5 % in some segment
         (``tools/segment_protocols.py``, PERF.md §7)."""
-        # imported here: the attribution module builds on this one
-        from parsy_bench_tpu_torch.scripts.attribution import SegmentTimer
         timer = SegmentTimer(self, a_data, "profile_segments", int(iters),
                              int(reps))
         out = []
@@ -1469,3 +1465,104 @@ class SupernodalExecutor(graphs.ProgramHost):
             pos, sel = self._l_map[ci]
             out[sel] = pools[ci].reshape(-1)[pos]
         return out
+
+
+# ------------------------------------------------------- segment timing
+#: device clock cycles slept per timed run before the start event: about
+#: 100 µs at the H100's ~2 GHz, more than the host takes to enqueue a replay
+_SLEEP_CYCLES = 200_000
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _reps_s(device, fn, reps):
+    """Seconds of ``reps`` back-to-back calls of ``fn``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda._sleep(reps * _SLEEP_CYCLES)
+
+    def run():
+        for _ in range(reps):
+            fn()
+    return graphs.elapsed_s(device, run)
+
+
+class SegmentTimer:
+    """The restore-and-time protocol of ``profile_segments`` and the
+    attribution scripts on the static pools of ``ex``.  ``begin(i)`` saves
+    segment i's input rows (the pools must then hold segment i's input);
+    ``program`` makes a mode's program ``<name>:<mode>[<segment>]``, which
+    restores those rows and runs the mode's variant of the steps; ``time``
+    times a segment's programs, ``reps`` runs back to back, ``iters``
+    times, in turns with a restore-only program whose median is
+    subtracted.  A run of the program of the segment's real steps leaves
+    the next segment's input.  Each run restores its input because a
+    finalize applied to a block it has already factored can hand K1 a
+    block that is not SPD, which K1 turns into NaN
+    (``scripts/attribution.reps_on_own_output``)."""
+
+    def __init__(self, ex, a_data, name, iters, reps):
+        if iters < 1 or reps < 1:
+            raise ValueError(f"iters {iters} and reps {reps} must be >= 1")
+        self.ex, self.name, self.iters, self.reps = ex, name, iters, reps
+        ex._load_a(a_data)
+        ex._program("init", ex._chain(0, 0, init=True)).run()
+        # the static pools no longer hold a returned factor
+        ex._held.pop("pools", None)
+        self.seg = None
+
+    def rows(self, i):
+        """Per class (class, first row, rows): the union of segment i's
+        row windows, which hold every pool entry its steps write."""
+        ex = self.ex
+        seg, rlo = ex.plan.segments[i], ex._segs[i].rlo
+        out = []
+        for ci in range(ex.ncls):
+            w = int(seg.wslice[ci])
+            if w:
+                lo = int(rlo[ci].min())
+                out.append((ci, lo, int(rlo[ci].max()) + w - lo))
+        return out
+
+    def begin(self, i):
+        """Save segment i's input rows and make its restore closure."""
+        ex = self.ex
+        pairs = []
+        for ci, lo, n in self.rows(i):
+            view = ex._rows_view(ex._pools[ci], ci, lo, n)
+            pairs.append((view, view.clone()))
+
+        def restore():
+            for dst, src in pairs:
+                dst.copy_(src)
+        self.seg, self._restore = i, restore
+
+    def program(self, mode, body):
+        """The program ``<name>:<mode>[<segment>]``: restore, then
+        ``body()``."""
+        restore = self._restore
+
+        def run():
+            restore()
+            body()
+        return self.ex._program(f"{self.name}:{mode}[{self.seg}]", run)
+
+    def time(self, progs: dict):
+        """({mode: seconds per run, restore subtracted}, restore seconds)
+        of the current segment's ``progs``, each captured first."""
+        ex = self.ex
+        allp = dict(progs)
+        allp[None] = ex._program(f"{self.name}:restore[{self.seg}]",
+                                 self._restore)
+        for p in allp.values():
+            p.run()
+        samples = {m: [] for m in allp}
+        for _ in range(self.iters):
+            for m, p in allp.items():
+                samples[m].append(_reps_s(ex.device, p.run, self.reps))
+        med = {m: sorted(v)[len(v) // 2] / self.reps
+               for m, v in samples.items()}
+        return {m: med[m] - med[None] for m in progs}, med[None]

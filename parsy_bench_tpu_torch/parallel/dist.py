@@ -14,8 +14,10 @@ each ``psum`` over the mesh axis is ``group.psum``:
   cross-owner chunk in a per-class ragged boundary send buffer;
 * one ``psum`` per (class, level step) reduces the send buffers, and each
   rank applies only its own slice of it to its boundary window rows;
-* the finalize is local: ``masked_spd`` + ``chol_inverse`` (kernel K1 on
-  the card) on the rank's own panels, then TRSM-as-GEMM;
+* the finalize is local: the single-device executor's unfused finalize
+  body (``ops/supernodal.fin_inverses``: ``masked_spd`` + ``chol_inverse``,
+  kernel K1 on the card; ``fin_land``: TRSM-as-GEMM and the delta) on
+  the rank's own panels, one chol group per class;
 * the solves move boundary slots only (one ragged ``psum`` per level
   step) and assemble x with one final ``psum`` (entries are
   owner-disjoint).
@@ -38,7 +40,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from parsy_bench_tpu_torch.ops import dense, supernodal
+from parsy_bench_tpu_torch.ops import supernodal
 from parsy_bench_tpu_torch.ops.device import (refuse_tf32, require,
                                               torch_dtype)
 from parsy_bench_tpu_torch.parallel.comm import group_device
@@ -262,38 +264,18 @@ class DistExecutor:
             land = self._zeros(W + 1, c)
             land.index_add_(0, st.brows[ci][t], own)
             wins[ci].sub_(land[:W])
-        self._finalize(wins, seg, st, t)
-
-    def _finalize(self, wins, seg, st, t):
-        """Local blocked Cholesky + TRSM-as-GEMM with stored inverses on
-        this rank's own panels: one ``chol_inverse`` per class (K1 on the
-        card), then ``dense.finalize_diff`` per bucket."""
-        for ci, c in enumerate(self.classes):
+        # the local finalize on the rank's own panels: one chol group of
+        # all of a class's buckets, so one ``chol_inverse`` per class
+        for ci in range(self.ncls):
             ks = [k for k, b in enumerate(seg.fin) if b.ccls == ci]
             if not ks:
                 continue
             win = wins[ci]
             delta = torch.zeros_like(win)
-            blks = []
-            for k in ks:
-                b, ft = seg.fin[k], st.fin[k]
-                off = int(ft.boff[t])
-                blks.append(win[off:off + b.P * b.H].view(b.P, b.H, c))
-            D = dense.masked_spd(torch.cat([x[:, :c, :] for x in blks]),
-                                 torch.cat([st.fin[k].w[t] for k in ks]),
-                                 c, self.dtype)
-            # through the module, so that a stand-in bound there is used
-            L, Linv = supernodal.chol_inverse(D)
-            lo = 0
-            for k, blk in zip(ks, blks):
-                b, ft = seg.fin[k], st.fin[k]
-                hi = lo + b.P
-                diff = dense.finalize_diff(blk, ft.w[t], int(ft.cnt[t]),
-                                           L[lo:hi], Linv[lo:hi])
-                lo = hi
-                off = int(ft.boff[t])
-                delta[off:off + b.P * b.H] += diff.view(-1, c)
-            win += delta
+            lanes = [supernodal.fin_lanes(win, seg.fin[k], st.fin[k], t)
+                     for k in ks]
+            supernodal.fin_land(win, delta, lanes, supernodal.fin_inverses(
+                [lanes], self.dtype))
 
     # --------------------------------------------------------- programs
     def _run_segments(self, pools, lo, hi):

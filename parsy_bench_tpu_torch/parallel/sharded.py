@@ -11,8 +11,9 @@ device, and each JAX ``psum`` over the mesh axis is ``group.psum``.
   a private delta window and one ``psum`` per class and level step merges
   them; the finalize lanes are owner-strided (lane % G == rank) and their
   delta is ``psum``'d, so every rank ends a step with the same pools.  The
-  step loop is the single-device executor's, through its rank-aware
-  branches (``ops/supernodal.py``).
+  step is the single-device executor's own ``_step`` run with the group
+  (``ops/supernodal.py``), whose finalize takes the rank's lanes through
+  ``fin_lanes``; at G = 1 it is the single-device step.
 * ``ShardedSimplicialExecutor``: each level's update stream is cut into G
   equal slices; each rank applies its slice into a private accumulator
   and one ``psum`` per level merges them; the scale and divide steps run
@@ -83,9 +84,7 @@ class ShardedSupernodalExecutor:
         for seg, tabs, groups in zip(self.plan.segments, ex._segs,
                                      self._groups):
             for t in range(seg.nsteps):
-                wins = ex._windows(pools, seg, tabs, t)
-                ex._apply_updates(pools, wins, seg, tabs, t, self.group)
-                ex._finalize_shard(wins, seg, tabs, t, self.group, groups)
+                ex._step(pools, seg, tabs, t, self.group, groups)
         return pools
 
     def solve_lower(self, pools, b):

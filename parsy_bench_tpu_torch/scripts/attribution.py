@@ -5,23 +5,8 @@
   own, built on the solver's plan, so that their programs never overwrite
   the static pools, the ``_held`` record or the ``programs`` of the
   solver's executor, which later callers read.
-* ``SegmentTimer``: each (segment, mode) is one captured ``Program``
-  (``ops/graphs.py``) named ``<script>:<mode>[<segment>]`` that first
-  restores the rows the segment's level steps write to the segment's input
-  state and then runs the mode's variant of those steps.  It is timed over
-  ``reps`` back-to-back runs, ``iters`` times, in turns with a
-  restore-only program, whose median is subtracted and reported
-  (``restore_s``).  Times are CUDA events on the card
-  (``graphs.elapsed_s``, after a device sleep that lets the host enqueue
-  the runs first), the host clock on the CPU.
-
-  Why restore: JAX's ``run_reps`` (scripts/floor_r5.py:133-143,
-  scripts/fin_ablate.py:135-144) and the JAX executor's
-  ``profile_segments`` apply a segment again to its own output.  A finalize applied to a block
-  it has already factored can hand K1 a block that is not SPD, which K1
-  turns into NaN, and runs on NaN need not take the time of real ones
-  (``reps_on_own_output`` reports whether the pools stay finite).  The
-  port's ``profile_segments`` times its segments through this class.
+* ``reps_on_own_output``: the JAX timing protocol's pools, which
+  ``ops/supernodal.SegmentTimer`` avoids by restoring each run's input.
 * ``profile``: one call under torch.profiler, with the primer and the
   retries that keep the card's profiles whole; ``chip_smoke.py``'s
   profiles go through it too.
@@ -40,8 +25,7 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-from parsy_bench_tpu_torch.ops import graphs
-from parsy_bench_tpu_torch.ops.supernodal import SupernodalExecutor
+from parsy_bench_tpu_torch.ops.supernodal import SupernodalExecutor, _sync
 
 #: K1's kernels as torch.profiler names them (csrc/chol_inverse.cu)
 K1_NAMES = ("chol_inverse_warp_kernel", "chol_inverse_blocked_kernel")
@@ -52,9 +36,6 @@ K1_WRAPPER = "cholesky_inverse_cuda"
 #: none
 PRIMER_NAME = "exp_kernel"
 PRIMER_OPS = 512
-#: device clock cycles slept per timed run before the start event: about
-#: 100 µs at the H100's ~2 GHz, more than the host takes to enqueue a replay
-_SLEEP_CYCLES = 200_000
 
 
 def own_executor(solver, device) -> SupernodalExecutor:
@@ -79,94 +60,6 @@ def k1_calls(ex, i) -> int:
     batch per step."""
     return ex.plan.segments[i].nsteps * sum(
         len(g) for g in ex._segs[i].fin_groups)
-
-
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def _reps_s(device, fn, reps):
-    """Seconds of ``reps`` back-to-back calls of ``fn``."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        torch.cuda._sleep(reps * _SLEEP_CYCLES)
-
-    def run():
-        for _ in range(reps):
-            fn()
-    return graphs.elapsed_s(device, run)
-
-
-class SegmentTimer:
-    """The restore-and-time protocol of the module docstring on the static
-    pools of ``ex``: ``begin(i)`` saves segment i's input rows (the pools
-    must then hold segment i's input), ``program`` makes a mode's program
-    and ``time`` times a segment's programs.  A run of the program of the
-    segment's real steps then leaves the next segment's input."""
-
-    def __init__(self, ex, a_data, name, iters, reps):
-        if iters < 1 or reps < 1:
-            raise ValueError(f"iters {iters} and reps {reps} must be >= 1")
-        self.ex, self.name, self.iters, self.reps = ex, name, iters, reps
-        ex._load_a(a_data)
-        ex._program("init", ex._chain(0, 0, init=True)).run()
-        # the static pools no longer hold a returned factor
-        ex._held.pop("pools", None)
-        self.seg = None
-
-    def rows(self, i):
-        """Per class (class, first row, rows): the union of segment i's
-        row windows, which hold every pool entry its steps write."""
-        ex = self.ex
-        seg, rlo = ex.plan.segments[i], ex._segs[i].rlo
-        out = []
-        for ci in range(ex.ncls):
-            w = int(seg.wslice[ci])
-            if w:
-                lo = int(rlo[ci].min())
-                out.append((ci, lo, int(rlo[ci].max()) + w - lo))
-        return out
-
-    def begin(self, i):
-        """Save segment i's input rows and make its restore closure."""
-        ex = self.ex
-        pairs = []
-        for ci, lo, n in self.rows(i):
-            view = ex._rows_view(ex._pools[ci], ci, lo, n)
-            pairs.append((view, view.clone()))
-
-        def restore():
-            for dst, src in pairs:
-                dst.copy_(src)
-        self.seg, self._restore = i, restore
-
-    def program(self, mode, body):
-        """The program ``<name>:<mode>[<segment>]``: restore, then
-        ``body()``."""
-        restore = self._restore
-
-        def run():
-            restore()
-            body()
-        return self.ex._program(f"{self.name}:{mode}[{self.seg}]", run)
-
-    def time(self, progs: dict):
-        """({mode: seconds per run, restore subtracted}, restore seconds)
-        of the current segment's ``progs``, each captured first."""
-        ex = self.ex
-        allp = dict(progs)
-        allp[None] = ex._program(f"{self.name}:restore[{self.seg}]",
-                                 self._restore)
-        for p in allp.values():
-            p.run()
-        samples = {m: [] for m in allp}
-        for _ in range(self.iters):
-            for m, p in allp.items():
-                samples[m].append(_reps_s(ex.device, p.run, self.reps))
-        med = {m: sorted(v)[len(v) // 2] / self.reps
-               for m, v in samples.items()}
-        return {m: med[m] - med[None] for m in progs}, med[None]
 
 
 def reps_on_own_output(solver, device="cuda", reps=20) -> dict:

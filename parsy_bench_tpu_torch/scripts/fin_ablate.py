@@ -7,7 +7,7 @@ batch at ``laplace_3d(48)`` is (27,520, 32)).
 
 Times the finalize of the segment's level steps with pieces knocked out,
 each mode one captured program run from the segment's restored input
-(``attribution.SegmentTimer``), as in the JAX script:
+(``supernodal.SegmentTimer``), as in the JAX script:
 
   full       the shipped finalize, ``SupernodalExecutor._finalize``
   nochol     the Cholesky replaced by (D, D) passthrough
@@ -22,9 +22,11 @@ each mode one captured program run from the segment's restored input
              reads 0.0, and ``slices_ops`` counts its device operations
              (0) in a profile.
 
-The four knocked-out modes run ``finalize``, this module's copy of the
-unfused ``_finalize`` with the piece taken out; with nothing taken out it
-is bit-equal to the executor's (held so on the CPU).
+The four knocked-out modes run the executor's own finalize body,
+``ops/supernodal.fin_inverses`` then ``fin_land``, with the piece swapped
+(``chol`` of the first, ``diff`` of the second) or the second left out;
+with nothing swapped it is bit-equal to the executor's (held so on the
+CPU).
 
 Beside the JAX keys (``segment``, ``fin`` and one per mode) the line holds
 ``restore_s``, ``k1_launches`` (per mode: captures, profiler, plan and
@@ -65,55 +67,43 @@ def _diff_noy(blk, w, cnt, L, Linv):
     return diff
 
 
-def finalize(ex, wins, seg, tabs, t, chol=None, tail=True, diff=None):
-    """The unfused ``SupernodalExecutor._finalize`` of step t with a piece
-    taken out: ``chol`` in place of ``supernodal.chol_inverse`` (K1 on the
-    card), ``tail=False`` stops after the Cholesky and leaves the windows
-    as they were, ``diff`` in place of ``dense.finalize_diff``."""
-    chol = chol or supernodal.chol_inverse
-    diff = diff or dense.finalize_diff
-    for ci, c in enumerate(ex.classes):
-        groups = tabs.fin_groups[ci]
-        if not groups:
-            continue
-        win = wins[ci]
-        blks, ws = {}, {}
-        for grp in groups:
-            for k in grp:
-                b, ft = seg.fin[k], tabs.fin[k]
-                off = int(ft.boff[t])
-                blks[k] = win[off:off + b.P * b.H].view(b.P, b.H, c)
-                ws[k] = ft.w[t]
-        if tail:
+def _classes(wins, seg, tabs, t):
+    """Per class with chol groups: (its window, its buckets'
+    ``supernodal.fin_lanes`` per chol group)."""
+    return [(wins[ci], [[supernodal.fin_lanes(wins[ci], seg.fin[k],
+                                              tabs.fin[k], t) for k in grp]
+                        for grp in groups])
+            for ci, groups in enumerate(tabs.fin_groups) if groups]
+
+
+def _swapped(chol=None, diff=None):
+    """The executor's unfused finalize body with ``chol`` in place of
+    ``supernodal.chol_inverse`` (K1 on the card) or ``diff`` in place of
+    ``dense.finalize_diff``."""
+    def fin(ex, wins, seg, tabs, t):
+        for win, groups in _classes(wins, seg, tabs, t):
             delta = torch.zeros_like(win)
-        Ls, Linvs = {}, {}
-        for grp in groups:
-            D = dense.masked_spd(torch.cat([blks[k][:, :c, :] for k in grp]),
-                                 torch.cat([ws[k] for k in grp]), c, ex.dtype)
-            Lg, Lig = chol(D)
-            off = 0
-            for k in grp:
-                Pk = seg.fin[k].P
-                Ls[k] = Lg[off:off + Pk]
-                Linvs[k] = Lig[off:off + Pk]
-                off += Pk
-        if not tail:
-            continue
-        for k in sorted(blks):
-            b, ft = seg.fin[k], tabs.fin[k]
-            d = diff(blks[k], ws[k], int(ft.cnt[t]), Ls[k], Linvs[k])
-            off = int(ft.boff[t])
-            delta[off:off + b.P * b.H] += d.view(-1, c)
-        win += delta
+            facs = supernodal.fin_inverses(groups, ex.dtype, chol)
+            supernodal.fin_land(win, delta, [x for g in groups for x in g],
+                                facs, diff=diff)
+    return fin
 
 
-#: mode -> the finalize of step t on the windows ``wins``
+def _cholonly(ex, wins, seg, tabs, t):
+    """The first half alone: the windows stay as they were."""
+    for _, groups in _classes(wins, seg, tabs, t):
+        supernodal.fin_inverses(groups, ex.dtype)
+
+
+#: mode -> the finalize of step t on the windows ``wins``: the executor's
+#: own, or its body (``supernodal.fin_inverses`` then ``fin_land``) with
+#: a piece swapped or left out
 VARIANTS = {
     "full": lambda ex, wins, seg, tabs, t: ex._finalize(wins, seg, tabs, t),
-    "nochol": lambda *a: finalize(*a, chol=lambda D: (D, D)),
-    "xlachol": lambda *a: finalize(*a, chol=dense.cholesky_inverse),
-    "cholonly": lambda *a: finalize(*a, tail=False),
-    "noy": lambda *a: finalize(*a, diff=_diff_noy),
+    "nochol": _swapped(chol=lambda D: (D, D)),
+    "xlachol": _swapped(chol=dense.cholesky_inverse),
+    "cholonly": _cholonly,
+    "noy": _swapped(diff=_diff_noy),
 }
 
 
@@ -139,8 +129,8 @@ def run(solver, device="cuda", segment=0, reps=10, iters=3) -> dict:
     if not 0 <= segment < nseg:
         raise ValueError(f"segment {segment} outside [0, {nseg})")
     seg, tabs = ex.plan.segments[segment], ex._segs[segment]
-    timer = attribution.SegmentTimer(ex, attribution.a_values(ex, solver),
-                                     "fin_ablate", iters, reps)
+    timer = supernodal.SegmentTimer(ex, attribution.a_values(ex, solver),
+                                    "fin_ablate", iters, reps)
     ex._chain(0, segment)()         # the pools then hold the segment's input
     timer.begin(segment)
     progs = {m: timer.program(m, segment_body(ex, segment, m))

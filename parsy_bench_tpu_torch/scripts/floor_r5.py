@@ -6,7 +6,7 @@ counterpart of ``scripts/floor_r5.py``.
 
 Times ablated variants of the level steps of every segment of the real
 plan, each (segment, mode) one captured program run from the segment's
-restored input (``attribution.SegmentTimer``).  Modes, as in the JAX
+restored input (``supernodal.SegmentTimer``).  Modes, as in the JAX
 script:
 
   full         the shipped step, ``SupernodalExecutor._step``
@@ -145,7 +145,7 @@ def run(solver, device="cuda", reps=20, iters=3, segments=None,
         raise ValueError(f"segments {sel} outside [0, {nseg})")
     modes = ALL_MODES if all_modes else MODES
     a = attribution.a_values(ex, solver)
-    timer = attribution.SegmentTimer(ex, a, "floor_r5", iters, reps)
+    timer = supernodal.SegmentTimer(ex, a, "floor_r5", iters, reps)
     rows, progs = [], {m: [] for m in modes}
     for i, seg in enumerate(ex.plan.segments):
         timer.begin(i)

@@ -32,6 +32,7 @@ import torch
 
 from parsy_bench_tpu_torch import bench
 from parsy_bench_tpu_torch.models import CholeskySolver
+from parsy_bench_tpu_torch.ops import supernodal
 from parsy_bench_tpu_torch.ops.device import require, resolve_device
 from parsy_bench_tpu_torch.scripts import attribution
 
@@ -77,8 +78,8 @@ def solve_s(ex, lx, b) -> float:
     """Seconds per forward solve: median of ``_ROUNDS`` rounds of
     ``solve_loop(lx, b, _ITERS)`` after one (its capture)."""
     ex.solve_loop(lx, b, _ITERS)
-    ts = [attribution._reps_s(ex.device,
-                              lambda: ex.solve_loop(lx, b, _ITERS), 1)
+    ts = [supernodal._reps_s(ex.device,
+                             lambda: ex.solve_loop(lx, b, _ITERS), 1)
           / _ITERS for _ in range(_ROUNDS)]
     return sorted(ts)[len(ts) // 2]
 

@@ -12,7 +12,11 @@ executor on a partitioned plan, against the JAX package on the CPU:
 * the single-device ``SupernodalExecutor`` on a plan with
   ``num_partitions=4`` (its update tables carry a G = 4 axis, which the
   port folds into the lanes) against the JAX single-device executor on
-  the same plan, in f64 (1e-10).
+  the same plan, in f64 (1e-10);
+* ``ShardedSupernodalExecutor`` in one rank (a stand-in group, in this
+  process) on a scatter-mode plan with ``num_partitions=1``, bit for bit
+  against the single-device ``_factorize_eager`` on the same plan: at
+  G = 1 the rank's step is the single-device step.
 
 The ranks of one G start once (``runs.run_jobs``); each JAX side compiles
 once per configuration.
@@ -41,8 +45,10 @@ from parsy_bench_tpu.parallel import (ShardedSupernodalExecutor as
 from parsy_bench_tpu_torch import CholeskySolver
 from parsy_bench_tpu_torch import SolverConfig as PortConfig
 from parsy_bench_tpu_torch.core import generate as port_generate
-from parsy_bench_tpu_torch.ops.supernodal import chol_groups
+from parsy_bench_tpu_torch.ops.supernodal import (SupernodalExecutor,
+                                                  chol_groups)
 from parsy_bench_tpu_torch.parallel import comm, runs
+from parsy_bench_tpu_torch.parallel.sharded import ShardedSupernodalExecutor
 from test_torch_native import reload_native_libs
 
 # a test process that lost a native library's first-build race
@@ -182,3 +188,39 @@ def test_single_device_on_partitioned_plan_matches_jax():
     assert np.max(np.abs(ex.factor_values(port.lx).numpy()
                          - plain.executor.factor_values(plain.lx).numpy())
                   ) < 1e-10
+
+
+class _OneRank:
+    """Rank 0 of a group of 1 on the CPU: ``psum`` returns its input and
+    counts its calls."""
+    rank, size, device = 0, 1, torch.device("cpu")
+
+    def __init__(self):
+        self.calls = 0
+
+    def psum(self, t):
+        self.calls += 1
+        return t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sharded_rank_at_one_rank_is_the_single_device_factorize(dtype):
+    port = CholeskySolver(
+        port_generate.SUITE["apache_small"](),
+        PortConfig(tier="supernodal", ordering="amd", dtype=dtype,
+                   update_delta="scatter", num_partitions=1), device="cpu")
+    plan = port.plan
+    assert plan.nshards == 1
+    assert all(seg.gsc is None for seg in plan.segments)
+    group = _OneRank()
+    got = ShardedSupernodalExecutor(plan, group, dtype, "cpu").factorize(
+        port.ap.data)
+    want = SupernodalExecutor(plan, dtype, "cpu")._factorize_eager(
+        port.ap.data)
+    assert len(got) == len(want)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # one psum per class delta and per finalized class, each level step
+    ncls = len(plan.layout.classes)
+    assert group.calls == sum(
+        seg.nsteps * (ncls + len({b.ccls for b in seg.fin}))
+        for seg in plan.segments)

@@ -11,7 +11,8 @@ programs.
 * On the card (``card``: skips without CUDA): the scope ranges of a
   captured ``factorize`` cover its nodes, every K1 operation of its replay
   maps to ``fin.k1`` and every cuBLAS GEMM or GEMV to a scope that
-  multiplies (``upd.product``, ``upd.align``, ``fin.diff``).  Run there without this directory's conftest, which imports
+  multiplies (``upd.product``, ``upd.align``, ``fin.diff``); a program
+  of one node (no edge) captures with its scope map.  Run there without this directory's conftest, which imports
   JAX: ``PYTHONPATH=. python3 -m pytest --noconftest -p no:cacheprovider
   tests/test_torch_trace.py -m card``.
 """
@@ -340,3 +341,24 @@ def test_card_replay_maps_kernels_to_their_scopes():
     assert len(k1) == ex.chol_calls_per_factorize > 0
     assert set(k1) == {"fin.k1"}
     assert gemm and set(gemm) <= {"upd.product", "upd.align", "fin.diff"}
+
+
+@pytest.mark.card
+def test_card_one_node_program_has_its_scope_map():
+    """A program of one device operation (a segment's restore in
+    ``SegmentTimer`` when one class holds its rows) is one chain without
+    an edge: it captures, replays, and its node lies in its span."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from parsy_bench_tpu_torch.ops import graphs
+    dev = torch.device("cuda")
+    x = torch.zeros(8, device=dev)
+
+    def fn():
+        with span("init"):
+            x.add_(1)
+    prog = graphs.Program("one", fn, dev)
+    prog.run()
+    prog.run()
+    assert prog.nodes == 1
+    assert prog.scopes == [("init", 0, 1)]

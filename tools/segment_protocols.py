@@ -13,7 +13,7 @@ on executors of its own:
   runs back to back, each on the previous run's output, between two CUDA
   events recorded as the host enqueues them; twice, one pass after the
   other;
-* ``own`` and ``restored``: ``scripts/attribution.SegmentTimer``'s turns
+* ``own`` and ``restored``: ``ops/supernodal.SegmentTimer``'s turns
   (a device sleep before each sample, so that the host enqueues the runs
   first) of two programs of the segment's steps: ``own`` runs them on its
   own output, as JAX does (its restore-only time added back, since the
@@ -75,10 +75,10 @@ def jax_protocol(ex, a, graphs):
     return out
 
 
-def timer_protocols(ex, a, attribution, floor_r5):
+def timer_protocols(ex, a, supernodal, floor_r5):
     """Per segment, (own, restored) seconds per run in
     ``SegmentTimer``'s turns."""
-    timer = attribution.SegmentTimer(ex, a, "protocols", ITERS, REPS)
+    timer = supernodal.SegmentTimer(ex, a, "protocols", ITERS, REPS)
     own, restored = [], []
     for i in range(len(ex.plan.segments)):
         timer.begin(i)
@@ -100,7 +100,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from parsy_bench_tpu_torch import bench
-    from parsy_bench_tpu_torch.ops import graphs
+    from parsy_bench_tpu_torch.ops import graphs, supernodal
     from parsy_bench_tpu_torch.scripts import attribution, floor_r5
     card = chip_smoke._card()
     print(card)
@@ -114,7 +114,7 @@ def main() -> int:
          "jax_2": jax_protocol(ex, a, graphs)}
     del ex
     ex = attribution.own_executor(solver, dev)
-    t["own"], t["restored"] = timer_protocols(ex, a, attribution, floor_r5)
+    t["own"], t["restored"] = timer_protocols(ex, a, supernodal, floor_r5)
     for x, y in (("jax_1", "jax_2"), ("own", "restored"),
                  ("jax_1", "restored"), ("jax_2", "restored")):
         c = chip_smoke._segment_times(t[x], t[y])
